@@ -11,9 +11,10 @@
  *   - float32 arithmetic only, with GGML's accumulation order in every loop
  *     (sequential ascending index) — the grid-search fits are sensitive to it.
  *   - fp16 conversions are IEEE 754 round-to-nearest-even. We use the
- *     compiler-native _Float16 when available (hard requirement in our build;
- *     gcc>=12 x86-64), which is RNE-correct including denormals, matching
- *     GGML's software converters bit for bit.
+ *     compiler-native _Float16 when the compiler has it (gcc>=12 x86-64) and
+ *     otherwise GGML's software converters; both are RNE-correct including
+ *     denormals and agree bit for bit (-DGQ_SOFT_FP16 forces the software
+ *     pair, which tests/test_native_parity.py checks).
  *   - nearest_int() must round half-to-even like GGML's float magic-number
  *     trick (add 2^23*1.5, reinterpret). lrintf() under the default FE_TONEAREST
  *     mode is identical for |x| <= 2^22, which the algorithm guarantees.
@@ -41,6 +42,8 @@ static inline int imax(int a, int b) { return a > b ? a : b; }
 
 /* ---------------------------------------------------------------- fp16 --- */
 
+#if defined(__FLT16_MANT_DIG__) && !defined(GQ_SOFT_FP16)
+
 GQ_EXPORT float gq_fp16_to_fp32(uint16_t h) {
     _Float16 v;
     memcpy(&v, &h, sizeof(v));
@@ -53,6 +56,49 @@ GQ_EXPORT uint16_t gq_fp32_to_fp16(float f) {
     memcpy(&h, &v, sizeof(h));
     return h;
 }
+
+#else  /* no _Float16 (e.g. gcc < 12): GGML's exact software converters */
+
+static inline uint32_t f32_bits(float f) {
+    uint32_t u;
+    memcpy(&u, &f, sizeof(u));
+    return u;
+}
+
+static inline float bits_f32(uint32_t u) {
+    float f;
+    memcpy(&f, &u, sizeof(f));
+    return f;
+}
+
+GQ_EXPORT float gq_fp16_to_fp32(uint16_t h) {
+    const uint32_t w = (uint32_t)h << 16;
+    const uint32_t sign = w & 0x80000000u;
+    const uint32_t two_w = w + w;
+    /* normals/inf/NaN: rebias the exponent with one float multiply */
+    const float normalized = bits_f32((two_w >> 4) + (0xE0u << 23))
+                             * 0x1.0p-112f;
+    /* denormals: splice the mantissa next to 0.5 and subtract it */
+    const float denormalized = bits_f32((two_w >> 17) | (126u << 23)) - 0.5f;
+    return bits_f32(sign | (two_w < (1u << 27) ? f32_bits(denormalized)
+                                                : f32_bits(normalized)));
+}
+
+GQ_EXPORT uint16_t gq_fp32_to_fp16(float f) {
+    /* float adds position and round (RNE) the 11 kept mantissa bits */
+    float base = (fabsf(f) * 0x1.0p+112f) * 0x1.0p-110f;
+    const uint32_t w = f32_bits(f);
+    const uint32_t shl1_w = w + w;
+    const uint32_t sign = w & 0x80000000u;
+    uint32_t bias = shl1_w & 0xFF000000u;
+    if (bias < 0x71000000u) bias = 0x71000000u;
+    base = bits_f32((bias >> 1) + 0x07800000u) + base;
+    const uint32_t bits = f32_bits(base);
+    const uint32_t nonsign = ((bits >> 13) & 0x00007C00u) + (bits & 0x00000FFFu);
+    return (uint16_t)((sign >> 16) | (shl1_w > 0xFF000000u ? 0x7E00u : nonsign));
+}
+
+#endif
 
 /* Vectorized helpers for Python-side bulk conversion. */
 GQ_EXPORT void gq_fp16_to_fp32_buf(const uint16_t *h, float *f, int64_t n) {

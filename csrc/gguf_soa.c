@@ -1,4 +1,4 @@
-/* gguf_soa.c — native GGUF-block -> TPU SoA layout transforms.
+/* gguf_soa.c — native GGUF-block -> SoA device layout transforms.
  *
  * The Python/numpy transforms in gguf_tpu/quant/layouts.py define the
  * layout contract (and remain the tested reference); these C twins produce
@@ -38,7 +38,9 @@
 #include <stdint.h>
 #include <string.h>
 #ifdef _OPENMP
+#ifdef _OPENMP
 #include <omp.h>
+#endif
 #endif
 
 #define TILE 128

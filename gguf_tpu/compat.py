@@ -5,8 +5,8 @@ taking raw GGUF weight bytes and (N, K) activations and returning
 C = (A @ B.T).T of shape (N, M) (/root/reference/kernels/mmq_q8_0.py:102,
 mmq_q4_k.py:240, mmq_q6_k.py:197). A user porting code from the reference
 can keep that exact calling convention through this module; each call
-transforms the bytes to the TPU SoA layout and dispatches to the Pallas
-kernel.
+transforms the bytes to the SoA device layout and dispatches to the MMQ
+op.
 
 For anything beyond a one-off call, transform once with
 `quant.layouts.to_soa` and hold the `QuantTensor` — the byte->SoA transform

@@ -348,13 +348,13 @@ class LLM:
         lora_scale: float = 1.0,
     ):
         """tp > 1 serves the model tensor-sharded (Megatron column/row
-        sharding, psum over ICI — parallel/tp.py); dp > 1 additionally
+        sharding, psum across the cards — parallel/tp.py); dp > 1 additionally
         shards the slot pool's batch over data-parallel replicas (decode
         throughput scales with dp; each single-request prefill runs
         dp-replicated); sp > 1 additionally shards every slot's KV cache
         along the sequence dim (context parallelism — attention combines
         per-shard flash partials, models/llama._cp_attention), letting a
-        context that exceeds one chip's HBM serve across the mesh; ep > 1
+        context that exceeds one card's memory serve across the mesh; ep > 1
         shards an MoE model's expert stacks (mixtral-family — each device
         evaluates its local experts, models/llama.moe_mlp). Uses the first
         tp*dp*sp*ep devices; the continuous-batching scheduler below is
@@ -373,6 +373,9 @@ class LLM:
         automatic prefix caching, exact: the reused rows are the ones the
         identical recomputation would produce). `llm.prefix_cache_hits`
         counts reused tokens."""
+        from ..utils.paths import enable_compile_cache
+
+        enable_compile_cache()
         if lora:
             # llama.cpp --lora: bake the adapter(s) in at load so the hot
             # path stays pure MMQ (llama.cpp's runtime keeps A/B resident;

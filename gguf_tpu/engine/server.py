@@ -833,6 +833,15 @@ def make_handler(worker: EngineWorker, slot_save_dir: str | None = None):
     return Handler
 
 
+def make_server(llm: LLM, host: str = "0.0.0.0", port: int = 8000,
+                slot_save_path: str | None = None) -> ThreadingHTTPServer:
+    """The HTTP server over a loaded LLM, not yet serving; port 0 picks a
+    free port (`server_address[1]`). Call `serve_forever()` to serve."""
+    return ThreadingHTTPServer((host, port),
+                               make_handler(EngineWorker(llm),
+                                            slot_save_path))
+
+
 def serve(model: str, host: str = "0.0.0.0", port: int = 8000,
           max_batch: int = 8, tp: int = 1, dp: int = 1, sp: int = 1,
           slot_save_path: str | None = None, mmproj: str | None = None,
@@ -841,10 +850,9 @@ def serve(model: str, host: str = "0.0.0.0", port: int = 8000,
               mmproj=mmproj, lora=lora,
               lora_scale=lora_scale)  # generate() chunks decode
 
-    worker = EngineWorker(llm)
-    httpd = ThreadingHTTPServer((host, port),
-                                make_handler(worker, slot_save_path))
-    print(f"serving {model} on {host}:{port} (max_batch={max_batch}, tp={tp}, dp={dp}, sp={sp})")
+    httpd = make_server(llm, host, port, slot_save_path)
+    print(f"serving {model} on {host}:{httpd.server_address[1]} "
+          f"(max_batch={max_batch}, tp={tp}, dp={dp}, sp={sp})")
     httpd.serve_forever()
 
 

@@ -11,7 +11,7 @@ This module runs a WHOLE forward pass in that contract — pure numpy, no
 JAX, no Pallas — so `perplexity_of_gguf(..., act_quant=True)` (the served
 path) can be gated against an independently-computed number:
 
-    served (TPU kernels, jit)           golden (this file, numpy)
+    served (MMQ ops, jit)               golden (this file, numpy)
     ---------------------------         --------------------------------
     fake_quantize_q8_1 -> MMQ Pallas    quantize_q8_1 bytes -> golden MMQ
     bf16 residual stream                ml_dtypes.bfloat16 residual stream

@@ -4,7 +4,7 @@ llama.cpp's `imatrix` tool accumulates the mean squared input activation
 per weight column over a calibration stream; `quantize --imatrix` then
 minimizes the ACTIVATION-weighted reconstruction error instead of the
 plain RMSE, which is where most of the low-bit (q2/q3/iq) quality comes
-from. This module reproduces both halves for the TPU stack:
+from. This module reproduces both halves for this stack:
 
 - `collect_imatrix(path, token_ids)` runs the served forward with
   `collect_sq=True` (models/llama.py) and returns {tensor_name:

@@ -2,7 +2,7 @@
 
 Tensor bytes are exposed as zero-copy numpy views over an mmap, so loading a
 multi-GB model file touches pages lazily; `load_quant` converts a quantized
-2-D weight straight into the TPU SoA layout (quant/layouts.py), optionally
+2-D weight straight into the SoA device layout (quant/layouts.py), optionally
 slicing a block-aligned row/column shard first — this is what makes
 tensor-parallel loads read only each host's shard from disk.
 """
@@ -159,7 +159,7 @@ class GGUFReader:
         raise ValueError(f"{name}: use load_quant/dequantize for {ti.ggml_type.name}")
 
     def load_quant(self, name: str, rows: slice | None = None):
-        """Load a quantized 2-D weight into the TPU SoA layout (QuantTensor).
+        """Load a quantized 2-D weight into the SoA device layout (QuantTensor).
 
         `rows` optionally selects a row shard (output features) — rows are
         whole superblocks so any row range is valid; this is the

@@ -4,10 +4,10 @@ llama.cpp serves multimodal models from two files: the language GGUF and
 an `mmproj` GGUF holding a CLIP vision tower (`v.*` tensors,
 `clip.vision.*` metadata) plus a projector (`mm.*`) that maps vision
 features into the LM's embedding space (clip.cpp / libmtmd lineage).
-This module loads that schema and runs it TPU-side:
+This module loads that schema and runs it on the device:
 
 - patch embedding: the conv2d over non-overlapping P x P patches is an
-  unfold + one (HW/P^2, 3P^2) x (3P^2, D) matmul — MXU, no conv
+  unfold + one (HW/P^2, 3P^2) x (3P^2, D) matmul — one GEMM, no conv
   primitive
 - a pre-LN ViT stack (biased q/k/v/o + GELU MLP, LayerNorms with bias)
 - llava MLP projector: drop the CLS row, mm.0 -> GELU -> mm.2

@@ -163,7 +163,7 @@ class LlamaConfig:
     @property
     def kv_cache_dim(self) -> int:
         """Per-token per-head cache row width. MLA stores the latent +
-        rope key in ONE row, padded to the 128-lane TPU tile."""
+        rope key in ONE row, padded to a 128-multiple row."""
         if self.kv_lora_rank:
             return -(-(self.kv_lora_rank + self.qk_rope_dim) // 128) * 128
         return self.head_dim

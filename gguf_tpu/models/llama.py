@@ -1,10 +1,10 @@
-"""Llama-family decoder built on the MMQ kernels.
+"""Llama-family decoder built on the MMQ ops.
 
 The reference stops at single GEMM kernels (SURVEY.md §0: "no model, no
 serving loop, no KV cache"); this module is the end-to-end consumer the
 north star requires: RMSNorm -> GQA attention with RoPE and an INT8 KV
-cache -> SwiGLU, with every linear layer running the fused dequant+matmul
-Pallas kernels on GGUF-quantized weights.
+cache -> SwiGLU, with every linear layer running the MMQ op (a fused
+dequant+matmul kernel or dequantize-then-dot) on GGUF-quantized weights.
 
 Everything is functional and pytree-based: `forward(params, cfg, tokens,
 pos, cache)` jits, shards (parallel/), and differentiates like any JAX
@@ -28,6 +28,8 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import MMQ
+from ..ops.attention import (decode_attention_update, kv_cache_insert,
+                             quantize_kv as _quantize_kv)
 from ..quant.layouts import QuantTensor
 from .config import LlamaConfig
 
@@ -40,16 +42,6 @@ class MMOpts(NamedTuple):
     vocab shard."""
     precision: str = "fast"
     act_quant: bool = False
-    block_m: int = 2048
-    block_k: int = 1024
-    # consult the measured per-shape TILE_TABLE at decode widths. Only
-    # applies while block_m/block_k carry their defaults: explicit
-    # per-call tiles are always honored (ADVICE r4). False pins the
-    # defaults everywhere — the control arm for tile-table e2e A/Bs.
-    use_tile_table: bool = True
-    # fuse the gated-MLP activation into the down GEMM at decode widths
-    # (mmq_q4_k glu=...); False = the XLA split/act/mul chain (A/B arm).
-    fuse_glu: bool = True
     axis_name: str | None = None
     # context parallelism: mesh axis the KV cache's sequence dim is sharded
     # over (contiguous shards). attention() then inserts only shard-owned
@@ -61,29 +53,19 @@ class MMOpts(NamedTuple):
     ep_axis: str | None = None
 
 
-def _tiles_for(w: QuantTensor, opts: MMOpts, n: int) -> tuple[int, int]:
-    """The ONE tile-selection policy (linear() and mlp()'s fused-GLU call
-    share it — self-review r5): the measured TILE_TABLE applies at decode
-    widths while opts carry the documented defaults; explicit per-call
-    tiles are always honored (ADVICE r4)."""
-    if opts.use_tile_table and (opts.block_m, opts.block_k) == (2048, 1024):
-        from ..ops.common import pick_tiles
-
-        return pick_tiles(w.lanes, w.shape[1], opts.block_m, opts.block_k,
-                          n, fmt=w.fmt)
-    return opts.block_m, opts.block_k
-
-
 def linear(w, x: jax.Array, opts: MMOpts = MMOpts()) -> jax.Array:
-    """y = x @ W^T for W (out, in): MMQ kernel for QuantTensors, plain dot
-    for float weights. Tile sizes come from the measured per-shape table
-    (ops/common.py:TILE_TABLE) at decode widths, opts otherwise."""
+    """y = x @ W^T for W (out, in): the MMQ op for QuantTensors (which
+    picks the fused kernel or dequantize-then-dot by format and width),
+    a plain dot for float weights."""
     if isinstance(w, QuantTensor):
-        bm, bk = _tiles_for(w, opts, x.shape[0])
         return MMQ[w.fmt](
             w, x, act_quant=opts.act_quant, precision=opts.precision,
-            block_m=bm, block_k=bk,
         ).astype(x.dtype)
+    if opts.precision == "high":   # f32 operands, no TF32 on the GPU
+        return jax.lax.dot_general(
+            x.astype(jnp.float32), w.astype(jnp.float32),
+            (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST).astype(x.dtype)
     return jax.lax.dot_general(
         x, w.astype(x.dtype), (((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
@@ -143,12 +125,6 @@ def _norm(x, layer_or_params, name: str, cfg: LlamaConfig) -> jax.Array:
 def rms_norm(x: jax.Array, weight: jax.Array, eps: float) -> jax.Array:
     # gemma's (1 + w) convention needs no switch here: llama.cpp's GGUF
     # converter bakes the +1 into the stored norm weights at convert time.
-    # A Pallas one-block variant (ops/activation.py:rms_norm_pallas) was
-    # measured NET SLOWER e2e at decode widths (7B 1481 vs 1510 tok/s,
-    # norm_ab 3/3 rounds, r5-s1): the per-launch dispatch exceeds what
-    # the XLA form actually costs — the ~17us/norm the 2L-1L ablation
-    # attributed was drift, unlike the rope shuffles which the same
-    # protocol confirmed. The XLA form stays.
     xf = x.astype(jnp.float32)
     var = jnp.mean(xf * xf, axis=-1, keepdims=True)
     return (xf * jax.lax.rsqrt(var + eps) * weight).astype(x.dtype)
@@ -272,18 +248,12 @@ def apply_rope(x: jax.Array, cos: jax.Array, sin: jax.Array,
     neox=True: rotate-half (ROPE_TYPE_NEOX) — dims (j, j+hd/2) rotate by
     angle j, the unpermuted HF order that qwen/gemma/phi GGUFs keep.
 
-    TPU-first form (r5): the lane deinterleave/reinterleave the textbook
-    even/odd formulation needs is an expensive TPU lane shuffle on every
-    q/k tensor (the 7B other_budget attributed ~50us/layer to the rope
-    region). Instead the signed partner value comes from ONE tiny exact
-    matmul against a +-1 permutation matrix (HIGHEST precision: each
-    output is a single exact product) and cos/sin are expanded to
-    head_dim on their (tiny) side: out = x*cos2 + (x @ P)*sin2 —
-    bit-identical products and sums to the old form, no lane shuffles on
-    the big tensor. Applied at ALL widths: the partner dot's FLOPs are
-    2*hd per element (hd/dim ~ 3% of the qkv GEMM even at HIGHEST), and
-    the prefill measurement agrees — 7B 512-token prefill went 50.1 ->
-    47.3 ms with this form (suite r5-s1 batches run)."""
+    The signed partner value comes from ONE tiny exact matmul against a
+    +-1 permutation matrix (HIGHEST precision: each output is a single
+    exact product) and cos/sin are expanded to head_dim on their (tiny)
+    side: out = x*cos2 + (x @ P)*sin2 — the same products and sums as the
+    textbook even/odd form without its lane deinterleave. On the H200
+    this form has not been measured against the plain one."""
     xf = x.astype(jnp.float32)
     hd = xf.shape[-1]
     if neox:
@@ -298,16 +268,6 @@ def apply_rope(x: jax.Array, cos: jax.Array, sin: jax.Array,
         preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST)
     return (xf * cos2 + partner * sin2).astype(x.dtype)
-
-
-# one batch element's span-prefix K/V cache elements that still fit the
-# fused Pallas attention kernel's VMEM working set (int8 + bf16 copies);
-# larger spans fall back to the XLA einsum path in attention()
-# single-tile attention VMEM envelope — the authoritative constant lives
-# with the kernels (ops/attention.py); decode_attention itself now
-# delegates past-envelope single-token calls to the tiled kernel, this
-# module keys prefill-vs-decode dispatch off the same number
-from ..ops.attention import PALLAS_ATTN_MAX_ELEMS  # noqa: E402
 
 
 # --------------------------------------------------------- INT8 KV cache ---
@@ -334,33 +294,18 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None):
     } for _ in range(cfg.n_layers)]
 
 
-def _quantize_kv(x: jax.Array):
-    """(B, KVH, T, hd) -> int8 codes + per-(B, KVH, T) scales."""
-    amax = jnp.max(jnp.abs(x), axis=-1)
-    scale = (amax / 127.0).astype(jnp.float32)
-    safe = jnp.where(scale == 0, 1.0, scale)
-    q = jnp.clip(jnp.rint(x.astype(jnp.float32) / safe[..., None]), -127, 127)
-    return q.astype(jnp.int8), scale
-
-
-def _cache_update(cache_l, new_k, new_v, pos):
-    """Insert T new tokens at per-batch positions pos (B,) — the long
-    prefill path (T > 16; short inserts go through the windowed Pallas
-    kernel, ops/attention.py:kv_cache_insert). Uses the vmapped
-    dynamic_update_slice, whose cost is flat in T; callers must guarantee
-    pos + T <= cache length or DUS clamps the start and corrupts earlier
-    rows."""
-    qk, sk = _quantize_kv(new_k)
-    qv, sv = _quantize_kv(new_v)
-
-    def upd(c, upd_val, p):
-        return jax.lax.dynamic_update_slice(c, upd_val, (0, p) + (0,) * (c.ndim - 2))
-
-    k = jax.vmap(upd, in_axes=(0, 0, 0))(cache_l["k"], qk, pos)
-    v = jax.vmap(upd, in_axes=(0, 0, 0))(cache_l["v"], qv, pos)
-    ks = jax.vmap(upd, in_axes=(0, 0, 0))(cache_l["k_scale"], sk, pos)
-    vs = jax.vmap(upd, in_axes=(0, 0, 0))(cache_l["v_scale"], sv, pos)
-    return {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+def _attend(cache_l, q, k_new, v_new, pos, opts: MMOpts, span, window=0,
+            softcap=0.0):
+    """Insert the T new K/V rows (B, KVH, T, hd) into the int8 cache and
+    attend q (B, H, T, hd) over its first `span` rows
+    (ops/attention.py). Returns (out (B, H, T, hd) f32, cache_l)."""
+    t = q.shape[2]
+    out, ck, cks, cv, cvs = decode_attention_update(
+        q, k_new.astype(jnp.float32), v_new.astype(jnp.float32),
+        cache_l["k"], cache_l["k_scale"], cache_l["v"], cache_l["v_scale"],
+        pos, t=t, precision=opts.precision, span=span, window=window,
+        softcap=softcap)
+    return out, {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
 
 
 def _unit_rope_cos_sin(positions: jax.Array, cfg):
@@ -473,7 +418,7 @@ def attention(layer, x, cfg: LlamaConfig, cache_l, pos, opts: MMOpts,
                              ).reshape(b, t, kvh, hd)
 
     if cfg.attn_scale:
-        # granite attention.scale replaces the kernels' baked-in
+        # granite attention.scale replaces the attention path's baked-in
         # 1/sqrt(head_dim) score scale: pre-multiply q by the ratio
         q = q * jnp.float32(cfg.attn_scale * float(hd) ** 0.5).astype(q.dtype)
 
@@ -503,88 +448,11 @@ def attention(layer, x, cfg: LlamaConfig, cache_l, pos, opts: MMOpts,
         return _cp_attention(layer, x, cfg, cache_l, q, k, v, tok_pos, pos,
                              opts, window=window)
 
-    s_cache = cache_l["k"].shape[2]
-    span_eff = s_cache if span is None else min(span, s_cache)
-    # the fused Pallas kernel holds one batch element's span-prefix K/V
-    # (int8 + bf16 copies) in VMEM; past ~2M cache elements per program it
-    # no longer fits (e.g. MHA-32/hd-128 beyond span 512) and attention
-    # falls back to the XLA einsum over the span slice. Sliding-window /
-    # softcapped layers (gemma2-family) ride the same kernels — the window
-    # is one extra iota compare, the cap one tanh, both pre-softmax.
-    pallas_fits = kvh * span_eff * hd <= PALLAS_ATTN_MAX_ELEMS
-    if t <= 8 and pallas_fits:
-        # decode / short chunks: Pallas block-windowed cache insert
-        # (aliased buffers, no HBM copies) + span-bounded attention over
-        # the updated cache (ops/attention.py)
-        from ..ops.attention import decode_attention_update
-
-        out, ck, cks, cv, cvs = decode_attention_update(
-            q.transpose(0, 2, 1, 3),
-            k.transpose(0, 2, 1, 3).astype(jnp.float32),
-            v.transpose(0, 2, 1, 3).astype(jnp.float32),
-            cache_l["k"], cache_l["k_scale"], cache_l["v"],
-            cache_l["v_scale"], pos, t=t, precision=opts.precision,
-            span=span, window=window, softcap=cfg.attn_softcap)
-        cache_l = {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
-        out = out.transpose(0, 2, 1, 3).reshape(b * t, h * hd)
-    elif t == 1 and span_eff % 256 == 0:
-        # long-span decode (engine steady state past the single-tile VMEM
-        # budget): windowed insert + flash-decoding over 256-row S-tiles,
-        # whose VMEM use is independent of span
-        from ..ops.attention import decode_attention_tiled, kv_cache_insert
-
-        ck, cks, cv, cvs = kv_cache_insert(
-            k.transpose(0, 2, 1, 3).astype(jnp.float32),
-            v.transpose(0, 2, 1, 3).astype(jnp.float32),
-            cache_l["k"], cache_l["k_scale"], cache_l["v"],
-            cache_l["v_scale"], pos, t=t)
-        cache_l = {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
-        out = decode_attention_tiled(
-            q.transpose(0, 2, 1, 3), ck, cks, cv, cvs, pos,
-            precision=opts.precision, span=span_eff,
-            window=window, softcap=cfg.attn_softcap)
-        out = out.transpose(0, 2, 1, 3).reshape(b * t, h * hd)
-    else:
-        if t <= 16:
-            # keep the windowed Pallas insert (a select or DUS insert
-            # would read+write the WHOLE cache per step)
-            from ..ops.attention import kv_cache_insert
-
-            ck, cks, cv, cvs = kv_cache_insert(
-                k.transpose(0, 2, 1, 3).astype(jnp.float32),
-                v.transpose(0, 2, 1, 3).astype(jnp.float32),
-                cache_l["k"], cache_l["k_scale"], cache_l["v"],
-                cache_l["v_scale"], pos, t=t)
-            cache_l = {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
-        else:
-            cache_l = _cache_update(
-                cache_l, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3),
-                pos)
-        # long prefill / long-span decode: the batched-einsum XLA path (big
-        # matmuls, MXU-happy); only the live span is dequantized + attended
-        s = span_eff
-        k_all = (cache_l["k"][:, :, :s].astype(jnp.float32)
-                 * cache_l["k_scale"][:, :, :s, None])
-        v_all = (cache_l["v"][:, :, :s].astype(jnp.float32)
-                 * cache_l["v_scale"][:, :, :s, None])
-
-        # GQA: group query heads over each kv head
-        qg = q.transpose(0, 2, 1, 3).reshape(b, kvh, h // kvh * t, hd)
-        scores = jnp.einsum("bgqd,bgsd->bgqs", qg.astype(jnp.float32), k_all)
-        scores = scores.reshape(b, kvh, h // kvh, t, s) / jnp.sqrt(hd).astype(jnp.float32)
-        if cfg.attn_softcap:   # gemma2: cap * tanh(score / cap), pre-mask
-            cap = jnp.float32(cfg.attn_softcap)
-            scores = cap * jnp.tanh(scores / cap)
-
-        causal = jnp.arange(s)[None, None, :] <= tok_pos[:, :, None]  # (B, T, S)
-        if window:   # sliding-window layers: keys older than window drop out
-            causal &= jnp.arange(s)[None, None, :] > tok_pos[:, :, None] - window
-        scores = jnp.where(causal[:, None, None, :, :], scores, -jnp.inf)
-        probs = jax.nn.softmax(scores, axis=-1)
-
-        out = jnp.einsum("bghqs,bgsd->bghqd",
-                         probs.reshape(b, kvh, h // kvh, t, s), v_all)
-        out = out.reshape(b, h, t, hd).transpose(0, 2, 1, 3).reshape(b * t, h * hd)
+    out, cache_l = _attend(
+        cache_l, q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+        v.transpose(0, 2, 1, 3), pos, opts, span, window=window,
+        softcap=cfg.attn_softcap)
+    out = out.transpose(0, 2, 1, 3).reshape(b * t, h * hd)
     proj = linear(layer["wo"], out.astype(x.dtype), opts)
     if opts.axis_name:  # row-parallel wo: sum partial products over tp
         proj = jax.lax.psum(proj, opts.axis_name)
@@ -598,15 +466,15 @@ def attention(layer, x, cfg: LlamaConfig, cache_l, pos, opts: MMOpts,
 def mla_attention(layer, x, cfg: LlamaConfig, cache_l, pos, opts: MMOpts,
                   rope=None, span: int | None = None,
                   return_pre_proj: bool = False):
-    """DeepSeek-V2 multi-head latent attention, ABSORBED form (the
-    TPU-native shape of MLA). The KV cache stores ONE row per token —
-    [compressed latent c_kv (kv_lora_rank) | shared rope key (qk_rope)],
-    zero-padded to the 128-lane tile — instead of per-head K/V: the
+    """DeepSeek-V2 multi-head latent attention, ABSORBED form. The KV
+    cache stores ONE row per token — [compressed latent c_kv
+    (kv_lora_rank) | shared rope key (qk_rope)], zero-padded to a
+    128-multiple row — instead of per-head K/V: the
     attn_kv_b up-projection's K half is folded into the query
     (q_eff = q_nope @ W_uk, per head) and its V half applied after the
     probability-weighted latent sum. Attention itself is then plain MQA
     with head_dim = kv_lora_rank + qk_rope over the EXISTING int8 cache
-    kernels; scores are equivalent to naive MLA because
+    ops; scores are equivalent to naive MLA because
     (W_uk q)·c == q·(W_uk^T c). Cache bytes drop ~9x vs naive MLA
     (DeepSeek-V2-Lite: 576 vs 16 heads x 320).
     Reference lineage: llama.cpp build_deepseek2 / LLM_ARCH_DEEPSEEK2."""
@@ -637,7 +505,7 @@ def mla_attention(layer, x, cfg: LlamaConfig, cache_l, pos, opts: MMOpts,
     k_pe = apply_rope(k_pe.astype(jnp.float32), cos[:, :, None, :],
                       sin[:, :, None, :], cfg.rope_neox)
 
-    # absorb W_uk into the query; pad to the tiled cache row. The kernels
+    # absorb W_uk into the query; pad to the tiled cache row. Attention
     # scale scores by 1/sqrt(row width), so fold in sqrt(hd_c / qk_dim)
     # to recover the true 1/sqrt(qk_nope + qk_rope).
     q_eff = jnp.einsum("bthd,hdr->bthr", q_nope.astype(jnp.float32),
@@ -659,55 +527,11 @@ def mla_attention(layer, x, cfg: LlamaConfig, cache_l, pos, opts: MMOpts,
         [c_kv[:, :, None, :], jnp.zeros((b, t, 1, rdim + pad),
                                         jnp.float32)], -1)
 
-    s_cache = cache_l["k"].shape[2]
-    span_eff = s_cache if span is None else min(span, s_cache)
-    pallas_fits = span_eff * hd_c <= PALLAS_ATTN_MAX_ELEMS
-    if t <= 8 and pallas_fits:
-        from ..ops.attention import decode_attention_update
-
-        out, ck, cks, cv, cvs = decode_attention_update(
-            q_full.transpose(0, 2, 1, 3), k_row.transpose(0, 2, 1, 3),
-            v_row.transpose(0, 2, 1, 3),
-            cache_l["k"], cache_l["k_scale"], cache_l["v"],
-            cache_l["v_scale"], pos, t=t, precision=opts.precision,
-            span=span)
-        cache_l = {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
-        out_lat = out.transpose(0, 2, 1, 3)          # (B, T, H, hd_c)
-    elif t == 1 and span_eff % 256 == 0:
-        from ..ops.attention import decode_attention_tiled, kv_cache_insert
-
-        ck, cks, cv, cvs = kv_cache_insert(
-            k_row.transpose(0, 2, 1, 3), v_row.transpose(0, 2, 1, 3),
-            cache_l["k"], cache_l["k_scale"], cache_l["v"],
-            cache_l["v_scale"], pos, t=t)
-        cache_l = {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
-        out = decode_attention_tiled(
-            q_full.transpose(0, 2, 1, 3), ck, cks, cv, cvs, pos,
-            precision=opts.precision, span=span_eff)
-        out_lat = out.transpose(0, 2, 1, 3)
-    else:
-        if t <= 16:
-            from ..ops.attention import kv_cache_insert
-
-            ck, cks, cv, cvs = kv_cache_insert(
-                k_row.transpose(0, 2, 1, 3), v_row.transpose(0, 2, 1, 3),
-                cache_l["k"], cache_l["k_scale"], cache_l["v"],
-                cache_l["v_scale"], pos, t=t)
-            cache_l = {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
-        else:
-            cache_l = _cache_update(
-                cache_l, k_row.transpose(0, 2, 1, 3),
-                v_row.transpose(0, 2, 1, 3), pos)
-        s = span_eff
-        k_all = (cache_l["k"][:, :, :s].astype(jnp.float32)
-                 * cache_l["k_scale"][:, :, :s, None])[:, 0]   # (B, S, hd_c)
-        v_all = (cache_l["v"][:, :, :s].astype(jnp.float32)
-                 * cache_l["v_scale"][:, :, :s, None])[:, 0]
-        scores = jnp.einsum("bthd,bsd->bhts", q_full, k_all) / hd_c ** 0.5
-        causal = jnp.arange(s)[None, None, :] <= tok_pos[:, :, None]
-        scores = jnp.where(causal[:, None, :, :], scores, -jnp.inf)
-        probs = jax.nn.softmax(scores, axis=-1)
-        out_lat = jnp.einsum("bhts,bsd->bthd", probs, v_all)
+    # one kv head of width hd_c: plain MQA over the int8 cache
+    out, cache_l = _attend(
+        cache_l, q_full.transpose(0, 2, 1, 3), k_row.transpose(0, 2, 1, 3),
+        v_row.transpose(0, 2, 1, 3), pos, opts, span)
+    out_lat = out.transpose(0, 2, 1, 3)          # (B, T, H, hd_c)
 
     # output path: W_uv maps the attended latent back to per-head values
     out = jnp.einsum("bthr,hvr->bthv", out_lat[..., :r],
@@ -725,52 +549,48 @@ def _cp_attention(layer, x, cfg: LlamaConfig, cache_l, q, k, v, tok_pos,
                   pos, opts: MMOpts, window: int = 0):
     """Sequence-parallel (context-parallel) attention: the cache's sequence
     dim is sharded contiguously over mesh axis `opts.seq_axis`, so each
-    device holds S/sp rows of every sequence and the full query. The TPU
-    shape of long-context decode: per-shard flash partials (max, sum-exp,
-    unnormalized output) joined by one pmax + two psums riding ICI — the
-    collective payload is O(B·H·T·hd), independent of sequence length.
+    device holds S/sp rows of every sequence and the full query.
+    Per-shard flash partials (max, sum-exp, unnormalized output) are
+    joined by one pmax + two psums — the collective payload is
+    O(B·H·T·hd), independent of sequence length.
     No ring is needed for a cache that is already resident: ring attention
     (ppermute of KV blocks) only pays off when KV lives with the queries;
     here KV lives where it was inserted and the small partials move instead.
 
     Inserts write only shard-owned rows: local position = pos - lo may be
-    negative (earlier shard) or >= S_loc (later shard) and the windowed
-    Pallas insert no-ops those (ops/attention.py:kv_cache_insert). Chunks
-    longer than the 32-row insert window are split into repeated calls.
-    `span` bounding is skipped — each shard attends its whole (already
-    1/sp-sized) slice and the global causal mask zeroes the rest.
+    negative (earlier shard) or >= S_loc (later shard), and the insert
+    drops those rows (ops/attention.py:kv_cache_insert). `span` bounding
+    is skipped — each shard attends its whole (already 1/sp-sized) slice
+    and the global causal mask zeroes the rest.
 
     Sliding-window layers (gemma2/3) compose naturally with CP: the window
     is one extra global-row compare in the mask — shards holding only
     out-of-window rows contribute zero probability mass and drop out of
     the psums (their m_loc is -inf but the pmax stays finite because the
     shard holding the query's own position always has a valid row).
-    Softcap is the same pre-mask cap*tanh as the single-chip kernels."""
+    Softcap is the same pre-mask cap*tanh as the single-card path."""
     b, t, _ = x.shape
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     sp = opts.seq_axis
     s_loc = cache_l["k"].shape[2]
     lo = jax.lax.axis_index(sp) * s_loc    # first global row this shard owns
 
-    from ..ops.attention import kv_cache_insert
-
-    kn = k.transpose(0, 2, 1, 3).astype(jnp.float32)
-    vn = v.transpose(0, 2, 1, 3).astype(jnp.float32)
+    # rows owned by another shard (local position < 0 or >= S_loc) drop
     local_pos = (pos - lo).astype(jnp.int32)
-    ck, cks = cache_l["k"], cache_l["k_scale"]
-    cv, cvs = cache_l["v"], cache_l["v_scale"]
-    for off in range(0, t, 32):
-        tc = min(32, t - off)
-        ck, cks, cv, cvs = kv_cache_insert(
-            kn[:, :, off:off + tc], vn[:, :, off:off + tc],
-            ck, cks, cv, cvs, local_pos + off, t=tc)
+    ck, cks, cv, cvs = kv_cache_insert(
+        k.transpose(0, 2, 1, 3).astype(jnp.float32),
+        v.transpose(0, 2, 1, 3).astype(jnp.float32),
+        cache_l["k"], cache_l["k_scale"], cache_l["v"], cache_l["v_scale"],
+        local_pos, t=t)
     cache_l = {"k": ck, "k_scale": cks, "v": cv, "v_scale": cvs}
 
     k_all = ck.astype(jnp.float32) * cks[..., None]        # (B, KVH, S_loc, hd)
     v_all = cv.astype(jnp.float32) * cvs[..., None]
+    prec = (jax.lax.Precision.HIGHEST if opts.precision == "high" else None)
     g = h // kvh
     qg = q.transpose(0, 2, 1, 3).reshape(b, kvh, g * t, hd)
-    scores = jnp.einsum("bgqd,bgsd->bgqs", qg.astype(jnp.float32), k_all)
+    scores = jnp.einsum("bgqd,bgsd->bgqs", qg.astype(jnp.float32), k_all,
+                        precision=prec)
     scores = scores.reshape(b, kvh, g, t, s_loc) / jnp.sqrt(hd).astype(jnp.float32)
     if cfg.attn_softcap:   # gemma2: cap * tanh(score / cap), pre-mask
         cap = jnp.float32(cfg.attn_softcap)
@@ -787,7 +607,8 @@ def _cp_attention(layer, x, cfg: LlamaConfig, cache_l, q, k, v, tok_pos,
     p = jnp.exp(scores - m[..., None])
     p = jnp.where(valid[:, None, None, :, :], p, 0.0)      # exp(-inf-m)=0; guard anyway
     l = jax.lax.psum(jnp.sum(p, axis=-1), sp)
-    o = jax.lax.psum(jnp.einsum("bghqs,bgsd->bghqd", p, v_all), sp)
+    o = jax.lax.psum(jnp.einsum("bghqs,bgsd->bghqd", p, v_all,
+                                precision=prec), sp)
     out = (o / l[..., None]).reshape(b, h, t, hd)
     out = out.transpose(0, 2, 1, 3).reshape(b * t, h * hd)
 
@@ -803,27 +624,6 @@ def mlp(layer, x, opts: MMOpts, act_fn: str = "silu",
     xf = x.reshape(b * t, -1)
     if "gate_up" in layer:  # fused projection (see fuse_llama_params)
         gu = linear(layer["gate_up"], xf, opts)
-        # decode-width GLU fusion (r5): hand the raw gate_up output to the
-        # down kernel, which computes act(gate)*up in-kernel per K-step —
-        # the split/act/mul XLA fusions and h's HBM round-trip disappear.
-        # The kernel falls back to identical XLA math outside its gate
-        # (prefill widths, act_quant), so this branch only needs the
-        # structural preconditions.
-        down_w = layer["down"]
-        if (opts.fuse_glu and not return_mid and "bup" not in layer
-                and isinstance(down_w, QuantTensor) and down_w.fmt == "q4_k"
-                and act_fn in ("silu", "gelu")
-                and gu.shape[-1] == 2 * down_w.shape[1]):
-            bm, bk = _tiles_for(down_w, opts, xf.shape[0])
-            down = MMQ["q4_k"](
-                down_w, gu, act_quant=opts.act_quant,
-                precision=opts.precision, block_m=bm, block_k=bk,
-                glu=act_fn).astype(x.dtype)
-            if opts.axis_name:
-                down = jax.lax.psum(down, opts.axis_name)
-            if "bdown" in layer:
-                down = down + layer["bdown"].astype(down.dtype)
-            return down.reshape(b, t, -1)
         g, u = jnp.split(gu, 2, axis=-1)
     elif "gate" in layer:
         g = linear(layer["gate"], xf, opts)
@@ -858,15 +658,13 @@ def moe_mlp(layer, x, cfg: LlamaConfig, opts: MMOpts):
 
     Evaluation is dense-per-expert: every (shard-local) expert runs over all
     tokens and the combine multiplies by the zero-masked routing weights.
-    On TPU decode this is the fast shape, not a compromise — expert GEMMs at
-    decode are weight-bytes-bound and with B*T*k assignments spread over E
-    experts nearly every expert is hit every step, so a capacity-style
-    dispatch would stream the same weight bytes while adding token-row
-    gathers that lower to serialized per-row TPU scatters. At long-prefill
-    shapes the extra FLOPs (E/k x) are the documented trade (DESIGN.md §MoE).
+    Expert GEMMs at decode are weight-bytes-bound and with B*T*k
+    assignments spread over E experts nearly every expert is hit every
+    step, so a capacity-style dispatch would stream the same weight bytes
+    plus token-row gathers. At long-prefill shapes the extra FLOPs (E/k x)
+    are the documented trade (DESIGN.md §MoE).
 
-    The top-k mask is built by comparing indices against an iota instead of
-    a scatter (TPU scatters serialize row-by-row).
+    The top-k mask is built by comparing indices against an iota.
 
     Expert parallelism: the expert stacks' leading E dim is sharded over
     mesh axis `opts.ep_axis`; each device evaluates its local experts
@@ -983,10 +781,9 @@ def fuse_llama_params(params: dict, tp: int = 1) -> dict:
             layer["gate_up"] = fuse([layer.pop("gate"), layer.pop("up")])
         layers.append(layer)
     out = {**params, "layers": layers}
-    # r5: the embedding table's K-major SoA makes a decode-step embed a
-    # 16-LANE gather over the vocab lane axis — measured 57us/step at 1B
-    # (budget1b head_resid). For untied checkpoints, materialize the
-    # table dequantized (f32 — bit-identical values to the row-wise
+    # The embedding table's K-major SoA makes a decode-step embed a gather
+    # along the vocab (last) axis of every field. For untied checkpoints,
+    # materialize the table dequantized (f32 — bit-identical values to the row-wise
     # dequant path, so fused-vs-unfused equivalence holds exactly) and
     # let embed() take contiguous rows instead. Gated on table size so
     # HBM-starved configs (13B) keep the compact form; tied checkpoints
@@ -997,9 +794,9 @@ def fuse_llama_params(params: dict, tp: int = 1) -> dict:
             and out.get("output") is not emb
             and emb.shape[0] * emb.shape[1] * 4 <= 600 * 2**20):
         # tp > 1 keeps the compact QuantTensor: the f32 table would be
-        # REPLICATED per chip (hundreds of MB each) while the sharded
-        # weight budget shrinks — the 57us gather amortizes over tp
-        # chips' aggregate throughput anyway (self-review r5)
+        # REPLICATED per card (hundreds of MB each) while the sharded
+        # weight budget shrinks. The 600 MiB gate has not been measured
+        # on the H200.
         out["token_embd"] = emb.dequantize()
     return out
 

@@ -45,18 +45,10 @@ def _pad_k_to(t, k_target: int):
 
 
 def _m_pad_target(m: int) -> int:
-    """Smallest 128-multiple >= m whose choose_bm tile divides it with a
-    >=1024 tile. Guards vocab matrices (e.g. Qwen2's 151936 = 128 * prime)
-    from choose_bm's call-time-pad fallback, which would copy the whole
-    LM-head weight inside every jitted call."""
-    from ..ops.common import choose_bm, round_up
+    """Vocab matrices pad their output dim to a 128-multiple, so the MMQ
+    kernel's power-of-two M tiles divide it without a per-call pad."""
+    from ..ops.common import round_up
 
-    cand = round_up(m, 128)
-    for _ in range(64):
-        bm = choose_bm(cand, 2048)
-        if cand % bm == 0 and bm >= min(1024, cand):
-            return cand
-        cand += 128
     return round_up(m, 128)
 
 
@@ -80,20 +72,11 @@ def _pad_vocab_weights(params: dict) -> dict:
 
 
 def _ffn_pad_target(ffn: int, granule: int) -> int:
-    """Smallest multiple of `granule` >= ffn such that BOTH ffn and the
-    fused gate+up width (2*ffn) get a >=1024 M-tile divisor from choose_bm.
-    Without this, shapes like Llama-2-7B's 11008 hit choose_bm's fallback
-    and the kernel wrapper zero-pads the WEIGHT inside every jitted call —
-    a ~45MB copy per gate_up launch."""
-    from ..ops.common import choose_bm
+    """Smallest multiple of `granule` (256 * tp: whole superblocks per
+    tensor-parallel shard) >= ffn."""
+    from ..ops.common import round_up
 
-    cand = (ffn + granule - 1) // granule * granule
-    for _ in range(64):
-        bm1, bm2 = choose_bm(cand, 2048), choose_bm(2 * cand, 2048)
-        if cand % bm1 == 0 and (2 * cand) % bm2 == 0 and min(bm1, bm2) >= 1024:
-            return cand
-        cand += granule
-    return (ffn + granule - 1) // granule * granule  # give up gracefully
+    return round_up(ffn, granule)
 
 
 def _pad_exps(t, ffn: int, ffn_pad: int, kind: str):
@@ -123,9 +106,8 @@ def _pad_exps(t, ffn: int, ffn_pad: int, kind: str):
 
 def pad_ffn_for_tp(params: dict, cfg: LlamaConfig, tp: int):
     """Pad the FFN dimension so row shards land on superblock boundaries
-    (multiple of 256*tp — e.g. Llama-2-7B's 11008 -> 11264 at tp=8) AND so
-    the gate/up/gate_up/down matrices get clean large M-tiles (see
-    _ffn_pad_target). The single-chip loader applies this with tp=1.
+    (multiple of 256*tp — e.g. Llama-2-7B's 11008 -> 12288 at tp=8). The
+    single-chip loader applies this with tp=1.
     MoE expert stacks pad every expert the same way (the stacked arrays
     carry the per-expert axes after the leading E dim)."""
     granule = 256 * tp
@@ -579,6 +561,21 @@ def _load_phi2(reader: GGUFReader, cfg: LlamaConfig):
 # ------------------------------------------------- synthetic checkpoints ---
 
 
+def synthetic_spm_metadata(vocab_size: int) -> dict:
+    """Minimal SPM tokenizer metadata for a random checkpoint: 3 specials
+    (<unk>, <s>, </s>), the 256 byte-fallback tokens, then padding pieces.
+    Any text encodes (byte fallback), so the serving path runs end to end."""
+    tokens = ["<unk>", "<s>", "</s>"]
+    tokens += [f"<0x{b:02X}>" for b in range(256)]
+    tokens = (tokens + [f"<p{i}>" for i in range(vocab_size)])[:vocab_size]
+    return {
+        "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.scores": np.zeros(vocab_size, np.float32),
+        "tokenizer.ggml.bos_token_id": 1,
+        "tokenizer.ggml.eos_token_id": 2,
+    }
+
+
 def write_random_llama_gguf(
     path: str,
     cfg: LlamaConfig,
@@ -591,9 +588,8 @@ def write_random_llama_gguf(
     """Create a random llama-schema GGUF checkpoint (tests / benchmarks).
 
     `weight_fn(rng, shape, scale) -> np.ndarray` overrides the gaussian
-    projection-weight generator — the hook the hostile-statistics accuracy
-    probes use to write heavy-tailed / outlier-channel checkpoints
-    (benchmarks/probe_ppl_hostile.py; VERDICT r4 #5).
+    projection-weight generator, e.g. to write heavy-tailed or
+    outlier-channel checkpoints for accuracy probes.
 
     Projection weights are quantized to `fmt`; norms stay F32, the output
     head uses Q6_K when `fmt` is K-quant (mirroring llama.cpp's Q4_K_M

@@ -11,7 +11,7 @@ Replaces a decoder block's attention+FFN with the Mamba-1 recipe
     y    = (state . C) + D * x
     out  = out_proj(y * silu(z))
 
-TPU mapping: the projections are MMQ/MXU matmuls over (B*T, ·); the
+Device mapping: the projections are MMQ matmuls over (B*T, ·); the
 recurrence carries (B, d_inner, d_state) f32 state through a
 `lax.scan` over time (T static — decode is one step, prefill chunks
 scan). The depthwise conv is d_conv fused multiply-adds over shifted

@@ -353,8 +353,8 @@ def write_random_t5_gguf(path: str, cfg: T5Config, seed: int = 0,
 def _t5_chunk(params, cfg, cache, tok, pos, enc_out, lens, key, steps,
               temp):
     """`steps` decode iterations in one jit (lax.scan): one host sync
-    per chunk instead of per token — the relay round-trip otherwise
-    dominates decode. Returns (cache, next_tok, key, toks (steps, B))."""
+    per chunk instead of per token — the host round-trip otherwise
+    dominates small-model decode. Returns (cache, next_tok, key, toks (steps, B))."""
 
     def step(carry, _):
         cache, tok, pos, key = carry

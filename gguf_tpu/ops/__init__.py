@@ -1,23 +1,20 @@
-"""Pallas TPU kernels and compute ops."""
+"""Compute ops: quantized matmul (MMQ, with a Pallas kernel through Triton
+for q4_k/q6_k decode widths), int8-KV decode attention and Q8_1
+activation quantization."""
 
-from .mmq_q8_0 import mmq_q8_0
-from .mmq_q2_k import mmq_q2_k
-from .mmq_q3_k import mmq_q3_k
-from .mmq_q4_k import mmq_q4_k
-from .mmq_q5_k import mmq_q5_k
-from .mmq_q6_k import mmq_q6_k
-from .mmq_legacy import mmq_q4_0, mmq_q4_1, mmq_q5_0, mmq_q5_1
-from .mmq_iq4 import mmq_iq4_nl, mmq_iq4_xs
+from .mmq import MMQ, FORMATS
 from .activation import quantize_q8_1_act, fake_quantize_q8_1
 from .attention import (decode_attention, decode_attention_tiled,
                         decode_attention_update, kv_cache_insert)
 
-MMQ = {"q8_0": mmq_q8_0, "q2_k": mmq_q2_k, "q3_k": mmq_q3_k,
-       "q4_k": mmq_q4_k, "q5_k": mmq_q5_k, "q6_k": mmq_q6_k,
-       "q4_0": mmq_q4_0, "q4_1": mmq_q4_1, "q5_0": mmq_q5_0,
-       "q5_1": mmq_q5_1, "iq4_nl": mmq_iq4_nl, "iq4_xs": mmq_iq4_xs}
+mmq_q8_0, mmq_q2_k, mmq_q3_k, mmq_q4_k, mmq_q5_k, mmq_q6_k = (
+    MMQ[f] for f in ("q8_0", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k"))
+mmq_q4_0, mmq_q4_1, mmq_q5_0, mmq_q5_1 = (
+    MMQ[f] for f in ("q4_0", "q4_1", "q5_0", "q5_1"))
+mmq_iq4_nl, mmq_iq4_xs = MMQ["iq4_nl"], MMQ["iq4_xs"]
 
 __all__ = [
+    "FORMATS",
     "mmq_q8_0", "mmq_q2_k", "mmq_q3_k", "mmq_q4_k", "mmq_q5_k", "mmq_q6_k",
     "mmq_q4_0", "mmq_q4_1", "mmq_q5_0", "mmq_q5_1",
     "mmq_iq4_nl", "mmq_iq4_xs",

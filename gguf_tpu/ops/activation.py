@@ -2,10 +2,9 @@
 
 The reference's GPU kernels re-quantize the activation tile to int8 inside
 every kernel launch (absmax/127 per 32 elements + round-to-nearest-even,
-/root/reference/kernels/mmq_q8_0.py:75-78). On TPU we hoist this out of the
-matmul: activations are tiny next to the weights (N <= 32 rows in decode), and
-quantizing once lets every M-tile and every layer in a fused block reuse the
-result instead of redoing it per tile the way a CUDA grid must.
+/root/reference/kernels/mmq_q8_0.py:75-78). Here the quantization is
+hoisted out of the matmul: activations are tiny next to the weights (N <= 32
+rows in decode), and quantizing once lets every M tile reuse the result.
 
 jnp.rint is round-half-to-even, the same contract as the reference's
 magic-number `round_to_nearest_int` (mmq_q8_0.py:7-10) and GGML's
@@ -13,8 +12,6 @@ magic-number `round_to_nearest_int` (mmq_q8_0.py:7-10) and GGML's
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,138 +47,21 @@ def quantize_q8_1_act(x: jax.Array):
 
 def fake_quantize_q8_1(x: jax.Array) -> jax.Array:
     """Round-trip x through Q8_1 (float in, float out). Feeding the MMQ
-    kernels fake-quantized activations reproduces the reference correctness
-    contract (CPU golden consumes pre-quantized Q8_1 activations,
-    /root/reference/test/test_mmq_q4_k.py:31-34).
-
-    At decode widths this runs as ONE Pallas kernel instead of the XLA op
-    chain: the chain's ~25 tiny ops cost 10.9 us/call of pure issue/layout
-    latency on a (16, 4096) activation (r4-s1 `contract decomposition`) —
-    2/3 of the act_quant mode's overhead over the serving path. Bit
-    identity with the XLA path is pinned by tests (same op sequence, same
-    integer-emulated fp16 rounding points)."""
+    ops fake-quantized activations reproduces the reference correctness
+    contract (the CPU golden consumes pre-quantized Q8_1 activations,
+    /root/reference/test/test_mmq_q4_k.py:31-34). XLA fuses the chain into
+    one elementwise kernel."""
     *lead, k = x.shape
-    n = 1
-    for s in lead:
-        n *= s
-    if n <= 64 and k % BLOCK == 0 and k <= 16384:
-        return _fake_quantize_pallas(
-            x.reshape(n, k).astype(jnp.float32)).reshape(*lead, k)
     q, d, _ = quantize_q8_1_act(x)
     g = q.reshape(*lead, k // BLOCK, BLOCK).astype(jnp.float32)
     return (g * d[..., None]).reshape(*lead, k)
 
 
 def quantize_q8_1_codes(x: jax.Array):
-    """Q8_1-quantize a decode-width activation, returning the CODES:
-    (q: int8 (n, K), d: f32 (n, K/32), s: f32 (n, K/32) — the fp16-rounded
-    d*sum(q) field). Same bit-exact math as quantize_q8_1_act (one Pallas
-    pass at decode widths); feeds the int8-MXU MMQ path, which needs raw
-    codes rather than the fake-quantized float round-trip."""
+    """Q8_1-quantize an activation, returning the CODES: (q: int8 (..., K),
+    d: f32 (..., K/32), s: f32 (..., K/32) — the fp16-rounded d*sum(q)
+    field), the operands an integer-dot MMQ consumes."""
     *lead, k = x.shape
-    n = 1
-    for sdim in lead:
-        n *= sdim
-    if n <= 64 and k % BLOCK == 0 and k <= 16384:
-        q, d, s = _quantize_codes_pallas(x.reshape(n, k).astype(jnp.float32))
-    else:
-        q, d, s = quantize_q8_1_act(x.reshape(n, k))
+    q, d, s = quantize_q8_1_act(x.reshape(-1, k))
     return (q.reshape(*lead, k), d.reshape(*lead, k // BLOCK),
             s.reshape(*lead, k // BLOCK))
-
-
-def _codes_kernel(x_ref, q_ref, d_ref, s_ref):
-    from ..quant.layouts import fp16_round as _f16
-
-    n, k = x_ref.shape
-    g = x_ref[:].T.reshape(k // BLOCK, BLOCK, n)
-    gf = _f16(g)
-    amax = jnp.max(jnp.abs(gf), axis=1, keepdims=True)   # (k/32, 1, n)
-    d = _f16(amax / 127.0)
-    d_safe = jnp.where(d == 0.0, 1.0, d)
-    q = jnp.clip(jnp.rint(_f16(gf / d_safe)), -127, 127)
-    sum_q = jnp.sum(q, axis=1, keepdims=True)            # exact in f32
-    q_ref[:] = q.reshape(k, n).T.astype(jnp.int8)
-    d_ref[:] = d[:, 0, :].T
-    s_ref[:] = _f16(d * sum_q)[:, 0, :].T
-
-
-@jax.jit
-def _quantize_codes_pallas(x: jax.Array):
-    from .common import running_interpreted
-
-    n, k = x.shape
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    return pl.pallas_call(
-        _codes_kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-        out_shape=[jax.ShapeDtypeStruct((n, k), jnp.int8),
-                   jax.ShapeDtypeStruct((n, k // BLOCK), jnp.float32),
-                   jax.ShapeDtypeStruct((n, k // BLOCK), jnp.float32)],
-        interpret=running_interpreted(),
-    )(x)
-
-
-def _rmsnorm_kernel(eps, x_ref, w_ref, o_ref):
-    xf = x_ref[:].astype(jnp.float32)
-    var = jnp.mean(xf * xf, axis=-1, keepdims=True)
-    o_ref[:] = xf * jax.lax.rsqrt(var + eps) * \
-        w_ref[:].astype(jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=("eps",))
-def rms_norm_pallas(x: jax.Array, weight: jax.Array, eps: float):
-    """One-block RMSNorm ((n <= 64, d) f32 out). MEASURED NET SLOWER than
-    the XLA form in-model (7B decode 1481 vs 1510 tok/s, norm_ab r5-s1,
-    3/3 interleaved rounds — per-launch dispatch > the XLA norm's real
-    cost) and therefore NOT routed from models/llama.py:rms_norm; kept
-    with its probe as the archived negative result."""
-    from .common import running_interpreted
-
-    n, d = x.shape
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    return pl.pallas_call(
-        functools.partial(_rmsnorm_kernel, eps),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, d), jnp.float32),
-        interpret=running_interpreted(),
-    )(x.astype(jnp.float32), weight.reshape(1, d))
-
-
-def _fq_kernel(x_ref, o_ref):
-    from ..quant.layouts import fp16_round as _f16
-
-    n, k = x_ref.shape
-    # per-32-block ops need the blocks on SUBLANES: transpose, reshape the
-    # sublane dim (lane dim stays n — legal in Mosaic), reduce axis 1
-    g = x_ref[:].T.reshape(k // BLOCK, BLOCK, n)
-    gf = _f16(g)
-    amax = jnp.max(jnp.abs(gf), axis=1, keepdims=True)   # (k/32, 1, n)
-    d = _f16(amax / 127.0)
-    d_safe = jnp.where(d == 0.0, 1.0, d)
-    q = jnp.clip(jnp.rint(_f16(gf / d_safe)), -127, 127)
-    o_ref[:] = (q * d).reshape(k, n).T
-
-
-@jax.jit
-def _fake_quantize_pallas(x: jax.Array) -> jax.Array:
-    from .common import running_interpreted
-
-    n, k = x.shape
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    return pl.pallas_call(
-        _fq_kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, k), jnp.float32),
-        interpret=running_interpreted(),
-    )(x)

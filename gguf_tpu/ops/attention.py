@@ -1,44 +1,27 @@
-"""Fused decode attention over the INT8 KV cache (Pallas).
+"""Decode attention over the INT8 KV cache, in plain XLA.
 
-The XLA formulation of GQA decode attention — dequantize the whole cache to
-f32 in HBM, then batched einsums of (h/kvh*t, hd) x (hd, S) per (batch,
-kv-head) pair — pays a dequantized-cache HBM round-trip (4x the int8
-bytes) every step, and the per-pair matmuls are too small for the MXU's
-weight-load pipeline. Measured us-vs-span, insert+attend pair vs that XLA
-formulation, interleaved in one session (benchmarks/bench_attention.py;
-archived in RESULTS_v5e.jsonl, session r3-attn-interleaved):
+The cache holds int8 K/V rows with one f32 scale per (token, kv head)
+(models/llama.py:init_kv_cache). Three entry points:
 
-  tinyllama shape (b16 h32 kvh4 hd64):  span 128/256/512/1024 ->
-    Pallas 19.6/20.7/23.8/29.8 us vs XLA 167/195/230/298 us (8.5-10x)
-  llama2-7b shape (b16 h32 kvh32 hd128): span 128/256/512 ->
-    Pallas 64/84/137 us vs XLA 278/352/499 us (3.6-4.3x); span 1024
-    rides the flash-decoding tiled kernel at 218 us = 636 GB/s of KV
-    reads, ~85% of the measured ~740-760 GB/s HBM stream roofline.
+* `kv_cache_insert` quantizes the step's new K/V rows (absmax/127 per
+  (token, head)) and scatters them into the cache at pos..pos+t-1. Under
+  jit with a donated cache XLA updates the buffers in place, so a step
+  writes only its new rows. Rows outside [0, S) are dropped: finished
+  continuous-batching slots (pos >= S) and rows owned by another
+  sequence-parallel shard (local pos < 0) are both no-ops.
+* `decode_attention` attends over the first `span` cache rows (every
+  pos + t <= span). The cache scales fold into the scores and the
+  probabilities, so K/V enter the dots as int8 codes and no dequantized
+  copy of the cache is written. A flash-decoding Pallas kernel (Triton
+  route) that read the int8 cache directly was measured against this form
+  in the decode step on the H200 and did not beat it (PERF.md, "Kernel
+  decisions"), so none is kept.
+* `decode_attention_update` composes the two.
 
-Two kernels, composed by `decode_attention_update`:
-
-* `kv_cache_insert` quantizes the step's new K/V rows to int8 and writes
-  them into the cache with scalar-prefetch-driven BlockSpecs: the grid only
-  addresses the 32-row cache block (and 128-col scale block) containing each
-  sequence's position, so the read-modify-write touches ~32 rows per batch
-  element instead of the whole cache. The cache buffers are aliased in/out
-  — blocks the index_map never addresses are left untouched in HBM, and no
-  XLA copies appear around the operand boundary.
-* `decode_attention` attends over the cache read-only. A static `span`
-  bounds how much of the cache is read: BlockSpecs map only the first
-  `span` rows, so a 4k-slot cache costs 128 rows of HBM traffic while
-  sequences are short. The engine buckets span at 128-multiples (bounded
-  jit specializations); callers guarantee span > max(pos) + t.
-
-An earlier revision fused insert+attention into one kernel; splitting them
-wins because the fused form had to write the FULL per-batch cache block
-back every step (out blocks are written whole) — at 7B/MHA shapes that
-write-back was ~half the attention-path HBM traffic.
-
-This file has no CUDA counterpart in the reference (it has no attention at
-all, SURVEY.md §0); it is new TPU-native capability required by the serving
-engine. The causal mask follows the same per-slot-position contract as
-models/llama.py:attention.
+The causal mask follows the per-slot-position contract of
+models/llama.py:attention: query token j of sequence b sits at
+pos[b] + j and sees cache rows <= that position (and > it - window for
+sliding-window layers).
 """
 
 from __future__ import annotations
@@ -47,91 +30,25 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .common import running_interpreted
 
-NEG_INF = float(jnp.finfo(jnp.float32).min)
+def quantize_kv(x: jax.Array):
+    """(..., hd) -> int8 codes + per-row f32 scales (absmax/127)."""
+    amax = jnp.max(jnp.abs(x), axis=-1)
+    scale = (amax / 127.0).astype(jnp.float32)
+    safe = jnp.where(scale == 0, 1.0, scale)
+    q = jnp.clip(jnp.rint(x.astype(jnp.float32) / safe[..., None]), -127, 127)
+    return q.astype(jnp.int8), scale
 
 
 # ------------------------------------------------------------ cache insert ---
-
-
-def _insert_kernel(t, s, bs, sc, pos_ref, kn_ref, vn_ref, k_ref, ks_ref,
-                   v_ref, vs_ref, ko_ref, kso_ref, vo_ref, vso_ref):
-    """Grid (B, nblk): quantize the t new rows for batch element i and
-    select them into the (bs)-row / (sc)-col windows that j indexes. When
-    the two j windows clamp to the same block the second pass rewrites
-    identical bytes (idempotent).
-
-    t == 1 is head-vectorized (3-D selects). t > 1 loops kv heads with 2-D
-    windows: the vectorized form needs `qn[:, tj:tj+1, :]` mid-dim value
-    slices, whose unaligned offsets abort Mosaic's lower_to_llo
-    (negative-VMEM-offset check) — same trap as the cross-head attention
-    body's multi-token variant."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    pos = pos_ref[i]
-    # clip (not just min): sequence-parallel shards pass pos < 0 for rows
-    # owned by an earlier shard — the clamped window then simply never
-    # row-matches, making the insert a cheap no-op (must mirror the
-    # BlockSpec index_maps exactly or row labels drift off the loaded block)
-    base = jnp.clip(pos // bs + j, 0, s // bs - 1) * bs
-    scbase = jnp.clip(pos // sc + j, 0, s // sc - 1) * sc
-    kvh = k_ref.shape[1]
-
-    def quant(new):                       # (..., t, hd) f32 -> int8 + scale
-        amax = jnp.max(jnp.abs(new), axis=-1)
-        sc_new = amax / 127.0
-        safe = jnp.where(sc_new == 0, 1.0, sc_new)
-        qn = jnp.clip(jnp.rint(new / safe[..., None]), -127, 127
-                      ).astype(jnp.int8)
-        return qn, sc_new
-
-    if t == 1:
-        row_abs = base + jax.lax.broadcasted_iota(jnp.int32, (kvh, bs, 1), 1)
-        col_abs = scbase + jax.lax.broadcasted_iota(jnp.int32, (kvh, 1, sc), 2)
-
-        def upd(c_ref, sc_ref, new):      # new (KVH, 1, hd) f32
-            qn, sc_new = quant(new)
-            c = jnp.where(row_abs == pos, qn[:, 0:1, :], c_ref[0])
-            scv = jnp.where(col_abs == pos, sc_new[:, 0][:, None, None],
-                            sc_ref[0])
-            return c, scv
-
-        k2, ks2 = upd(k_ref, ks_ref, kn_ref[0].astype(jnp.float32))
-        ko_ref[0] = k2
-        kso_ref[0] = ks2
-        v2, vs2 = upd(v_ref, vs_ref, vn_ref[0].astype(jnp.float32))
-        vo_ref[0] = v2
-        vso_ref[0] = vs2
-        return
-
-    row_abs = base + jax.lax.broadcasted_iota(jnp.int32, (bs, 1), 0)
-    col_abs = scbase + jax.lax.broadcasted_iota(jnp.int32, (1, sc), 1)
-    for g in range(kvh):
-        def upd(c_ref, sc_ref, new):      # new (t, hd) f32
-            qn, sc_new = quant(new)
-            c, scv = c_ref[0, g], sc_ref[0, g]
-            for tj in range(t):
-                c = jnp.where(row_abs == pos + tj, qn[tj][None, :], c)
-                scv = jnp.where(col_abs == pos + tj, sc_new[tj], scv)
-            return c, scv
-
-        k2, ks2 = upd(k_ref, ks_ref, kn_ref[0, g].astype(jnp.float32))
-        ko_ref[0, g] = k2
-        kso_ref[0, g] = ks2
-        v2, vs2 = upd(v_ref, vs_ref, vn_ref[0, g].astype(jnp.float32))
-        vo_ref[0, g] = v2
-        vso_ref[0, g] = vs2
 
 
 @functools.partial(jax.jit, static_argnames=("t",))
 def kv_cache_insert(
     k_new: jax.Array,    # (B, KVH, t, hd) f32 — rope applied
     v_new: jax.Array,
-    k: jax.Array,        # (B, KVH, S, hd) int8 cache (aliased in/out)
+    k: jax.Array,        # (B, KVH, S, hd) int8 cache
     k_scale: jax.Array,  # (B, KVH, S) f32
     v: jax.Array,
     v_scale: jax.Array,
@@ -139,151 +56,65 @@ def kv_cache_insert(
     *,
     t: int,
 ):
-    """Quantize t new K/V rows per sequence to int8 (absmax/127 per
-    (token, head), matching models/llama._quantize_kv) and write them into
-    the cache at pos..pos+t-1. Returns (k, k_scale, v, v_scale) — the same
-    HBM buffers, updated in place via aliasing; only the touched 32-row /
-    128-col blocks move. Positions outside [0, S) are ignored (clamped
-    windows never row-match): finished continuous-batching slots (pos >= S)
-    and rows owned by another sequence-parallel shard (local pos < 0, see
-    parallel/cp notes in models/llama.attention) are both harmless
-    no-ops."""
+    """Quantize t new K/V rows per sequence to int8 and write them into the
+    cache at pos..pos+t-1. Returns (k, k_scale, v, v_scale). Rows outside
+    [0, S) are dropped."""
     b, kvh, s, hd = k.shape
     assert k_new.shape == (b, kvh, t, hd), (k_new.shape, (b, kvh, t, hd))
-    # two j-windows of 32 rows cover pos..pos+t-1 only while
-    # pos%32 + t <= 64 for every pos, i.e. t <= 33; guard the API so a
-    # larger t cannot silently drop rows from the cache
-    assert t <= 32, f"kv_cache_insert handles t <= 32 rows, got {t}"
+    rows = pos.astype(jnp.int32)[:, None] + jnp.arange(t, dtype=jnp.int32)
+    rows = jnp.where((rows >= 0) & (rows < s), rows, s)   # s = dropped
+    bi = jnp.arange(b)[:, None, None]
+    hi = jnp.arange(kvh)[None, :, None]
+    ri = rows[:, None, :]                                 # (B, 1, t)
 
-    # window sizes: int8 sublane tile is 32 rows; scales live on lanes, 128
-    # cols. Tiny caches (tests) fall back to whole-S windows.
-    bs = 32 if s % 32 == 0 else s
-    sc = 128 if s % 128 == 0 else s
-    # one window when the t rows cannot cross a boundary, else two
-    nblk = 1 if (t == 1 or (bs >= s and sc >= s)) else 2
+    def put(cache, cache_scale, new):
+        q, sc = quantize_kv(new)
+        return (cache.at[bi, hi, ri].set(q, mode="drop"),
+                cache_scale.at[bi, hi, ri].set(sc, mode="drop"))
 
-    ks4 = k_scale.reshape(b, kvh, 1, s)
-    vs4 = v_scale.reshape(b, kvh, 1, s)
-
-    new_spec = pl.BlockSpec((1, kvh, t, hd), lambda i, j, p: (i, 0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    row_spec = pl.BlockSpec(
-        (1, kvh, bs, hd),
-        lambda i, j, p: (i, 0, jnp.clip(p[i] // bs + j, 0, s // bs - 1), 0),
-        memory_space=pltpu.VMEM)
-    sc_spec = pl.BlockSpec(
-        (1, kvh, 1, sc),
-        lambda i, j, p: (i, 0, 0, jnp.clip(p[i] // sc + j, 0, s // sc - 1)),
-        memory_space=pltpu.VMEM)
-
-    ko, kso, vo, vso = pl.pallas_call(
-        functools.partial(_insert_kernel, t, s, bs, sc),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(b, nblk),
-            in_specs=[new_spec, new_spec, row_spec, sc_spec, row_spec,
-                      sc_spec],
-            out_specs=(row_spec, sc_spec, row_spec, sc_spec),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct(k.shape, jnp.int8),
-            jax.ShapeDtypeStruct(ks4.shape, jnp.float32),
-            jax.ShapeDtypeStruct(v.shape, jnp.int8),
-            jax.ShapeDtypeStruct(vs4.shape, jnp.float32),
-        ),
-        # indices count the scalar-prefetch operand: pos=0, k_new=1, ...
-        input_output_aliases={3: 0, 4: 1, 5: 2, 6: 3},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=running_interpreted(),
-    )(pos.astype(jnp.int32), k_new, v_new, k, ks4, v, vs4)
-
-    return ko, kso.reshape(b, kvh, s), vo, vso.reshape(b, kvh, s)
+    k, k_scale = put(k, k_scale, k_new)
+    v, v_scale = put(v, v_scale, v_new)
+    return k, k_scale, v, v_scale
 
 
-# -------------------------------------------------------- decode attention ---
+# ------------------------------------------------------------- XLA form ---
 
 
-def _attn_kernel(t, kvh, g, scale, fast, cross, window, softcap,
-                 q_ref, k_ref, ks_ref, v_ref, vs_ref, pos_ref, out_ref):
-    """One batch element over the first `span` cache rows (the BlockSpecs
-    hand this kernel only that prefix). Two bodies:
-
-    - cross (t == 1): ONE (H, hd) x (hd, KVH*span) scores matmul across ALL
-      kv heads with off-block entries masked to -inf before softmax
-      (cross-head probabilities are exactly zero) and ONE (H, KVH*span) x
-      (KVH*span, hd) PV matmul. The KVH-fold FLOP waste is trivial at
-      decode sizes and beats the per-head loop by 3x at MHA shapes (which
-      is op-issue bound: B*KVH tiny dot sequences).
-    - loop (t > 1, short prefill chunks): per-kv-head dots; the cross
-      form's waste grows with t."""
-    dt = jnp.bfloat16 if fast else jnp.float32
-    prec = jax.lax.Precision.DEFAULT if fast else jax.lax.Precision.HIGHEST
-    pos = pos_ref[pl.program_id(0), 0]
-    s = k_ref.shape[2]
-    hd = k_ref.shape[3]
-
-    if cross:
-        r = kvh * g
-        q = q_ref[0].reshape(r, hd).astype(dt)
-        k2 = k_ref[0].reshape(kvh * s, hd).astype(dt)
-        v2 = v_ref[0].reshape(kvh * s, hd).astype(dt)
-        scores = jax.lax.dot_general(
-            q, k2, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=prec)  # (R, KVH*S)
-        scores = scores * (ks_ref[0].reshape(1, kvh * s).astype(jnp.float32)
-                           * scale)
-        if softcap:   # gemma2: cap * tanh(score / cap), pre-mask
-            scores = softcap * jnp.tanh(scores * (1.0 / softcap))
-        rr = jax.lax.broadcasted_iota(jnp.int32, (r, kvh * s), 0)
-        cc = jax.lax.broadcasted_iota(jnp.int32, (r, kvh * s), 1)
-        own = (cc // s) == (rr // g)
-        causal = (cc % s) <= pos
-        if window:    # sliding-window layers: old keys drop out
-            causal &= (cc % s) > pos - window
-        scores = jnp.where(own & causal, scores, NEG_INF)
-        m = jnp.max(scores, axis=-1, keepdims=True)
-        p = jnp.exp(scores - m)
-        p = p / jnp.sum(p, axis=-1, keepdims=True)
-        pv = (p * vs_ref[0].reshape(1, kvh * s).astype(jnp.float32)).astype(dt)
-        out = jax.lax.dot_general(
-            pv, v2, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=prec)
-        out_ref[0] = out.reshape(kvh, g, hd)
-        return
-
-    for gi in range(kvh):
-        q = q_ref[0, gi].astype(dt)                      # (g*t, hd)
-        k = k_ref[0, gi].astype(dt)                      # (span, hd)
-        v = v_ref[0, gi].astype(dt)
-        ks = ks_ref[0, gi].astype(jnp.float32)           # (1, span)
-        vs = vs_ref[0, gi].astype(jnp.float32)
-
-        qn, sv = q.shape[0], k.shape[0]
-        scores = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=prec)
-        scores = scores * (ks * scale)                   # (Q, span)
-        if softcap:
-            scores = softcap * jnp.tanh(scores * (1.0 / softcap))
-        row_tok = jax.lax.broadcasted_iota(jnp.int32, (qn, sv), 0) % t
-        col = jax.lax.broadcasted_iota(jnp.int32, (qn, sv), 1)
-        live = col <= pos + row_tok
-        if window:
-            live &= col > pos + row_tok - window
-        scores = jnp.where(live, scores, NEG_INF)
-        m = jnp.max(scores, axis=-1, keepdims=True)
-        p = jnp.exp(scores - m)
-        p = p / jnp.sum(p, axis=-1, keepdims=True)
-        pv = (p * vs).astype(dt)                         # fold v_scale
-        out_ref[0, gi] = jax.lax.dot_general(
-            pv, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=prec)
+def attention_xla(q, k, k_scale, v, v_scale, pos, *, precision, span,
+                  window=0, softcap=0.0):
+    """Plain XLA GQA attention over the span prefix of the int8 cache. The
+    cache scales fold into the scores and the probabilities, so K/V enter
+    the dots as int8 codes (exact in bf16). Returns (B, H, t, hd) f32."""
+    b, h, t, hd = q.shape
+    kvh = k.shape[1]
+    g = h // kvh
+    if precision == "fast":
+        dt, prec = jnp.bfloat16, None
+    else:
+        dt, prec = jnp.float32, jax.lax.Precision.HIGHEST
+    kq, ks = k[:, :, :span].astype(dt), k_scale[:, :, :span]
+    vq, vs = v[:, :, :span].astype(dt), v_scale[:, :, :span]
+    qg = q.reshape(b, kvh, g * t, hd).astype(dt)
+    scores = jnp.einsum("bgqd,bgsd->bgqs", qg, kq, precision=prec,
+                        preferred_element_type=jnp.float32)
+    scores = scores * (ks[:, :, None, :] / jnp.sqrt(jnp.float32(hd)))
+    if softcap:   # gemma2: cap * tanh(score / cap), pre-mask
+        scores = softcap * jnp.tanh(scores / softcap)
+    tok = pos[:, None] + (jnp.arange(g * t) % t)[None, :]      # (B, g*t)
+    col = jnp.arange(span)
+    live = col[None, None, :] <= tok[:, :, None]
+    if window:    # sliding-window layers: keys older than window drop out
+        live &= col[None, None, :] > tok[:, :, None] - window
+    scores = jnp.where(live[:, None], scores, -jnp.inf)
+    probs = jax.nn.softmax(scores, axis=-1) * vs[:, :, None, :]
+    out = jnp.einsum("bgqs,bgsd->bgqd", probs.astype(dt), vq,
+                     precision=prec, preferred_element_type=jnp.float32)
+    return out.reshape(b, h, t, hd)
 
 
-@functools.partial(jax.jit, static_argnames=("t", "precision", "span",
-                                             "window", "softcap"))
+# ---------------------------------------------------------- entry points ---
+
+
 def decode_attention(
     q: jax.Array,        # (B, H, t, hd) — rope already applied
     k: jax.Array,        # (B, KVH, S, hd) int8 cache
@@ -298,330 +129,38 @@ def decode_attention(
     window: int = 0,
     softcap: float = 0.0,
 ) -> jax.Array:
-    """Fused GQA decode attention; returns (B, H, t, hd) f32. The t new
-    tokens' K/V must already be written to the cache at pos..pos+t-1, and
-    every pos must satisfy pos + t <= span: only the first `span` cache
-    rows are read (HBM traffic scales with span, not cache capacity).
+    """GQA decode attention; returns (B, H, t, hd) f32. The t new tokens'
+    K/V must already be in the cache at pos..pos+t-1, and every pos + t
+    must be <= span: only the first `span` cache rows are read.
     `window` > 0 restricts each query to its last `window` key positions;
-    `softcap` > 0 applies cap*tanh(score/cap) pre-mask (gemma2-family)."""
-    b, h, tt, hd = q.shape
-    assert tt == t
-    _, kvh, s, _ = k.shape
-    g = h // kvh
+    `softcap` > 0 applies cap*tanh(score/cap) before the mask
+    (gemma2-family)."""
+    assert q.shape[2] == t, (q.shape, t)
+    s = k.shape[2]
     span = s if span is None else min(span, s)
-    # single-tile envelope: the kernel holds one batch element's span-
-    # prefix K/V (int8 + working copies) in VMEM; past ~2M cache elements
-    # per program it cannot fit and the Mosaic compile aborts opaquely —
-    # delegate single-token calls to the flash-decoding tiled kernel
-    # (models/llama.py keys its dispatch off the same constant)
-    if t == 1 and kvh * span * hd > PALLAS_ATTN_MAX_ELEMS \
-            and span % 256 == 0:
-        return decode_attention_tiled(
-            q, k, k_scale, v, v_scale, pos, precision=precision,
-            span=span, window=window, softcap=softcap)
-    # prefix reads block the scale arrays' LANE dim at `span`; Mosaic only
-    # lowers lane-dim blocks at 128-multiples (span == s reads whole rows)
-    assert span % 128 == 0 or span == s, (
-        f"span {span} must be a multiple of 128 (or the full cache {s})")
-
-    qr = q.reshape(b, kvh, g * t, hd)
-    scale = 1.0 / (hd ** 0.5)
-    # the (KVH, 1, span) -> (1, KVH*span) scale reshape merges into the lane
-    # dim, which Mosaic only lowers at 128-multiples
-    cross = t == 1 and span % 128 == 0
-
-    blk = lambda *shape: pl.BlockSpec(
-        (1, *shape), lambda i: (i,) + (0,) * len(shape),
-        memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        functools.partial(_attn_kernel, t, kvh, g, scale,
-                          precision == "fast", cross, window, softcap),
-        grid=(b,),
-        in_specs=[
-            blk(kvh, g * t, hd),
-            blk(kvh, span, hd),             # first span rows only
-            blk(kvh, 1, span),
-            blk(kvh, span, hd),
-            blk(kvh, 1, span),
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # pos: whole (B, 1)
-        ],
-        out_specs=blk(kvh, g * t, hd),
-        out_shape=jax.ShapeDtypeStruct((b, kvh, g * t, hd), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-        ),
-        interpret=running_interpreted(),
-    )(qr, k, k_scale.reshape(b, kvh, 1, s), v,
-      v_scale.reshape(b, kvh, 1, s), pos.reshape(b, 1).astype(jnp.int32))
-
-    return out.reshape(b, h, t, hd)
+    return _attention_xla_jit(q, k, k_scale, v, v_scale, pos,
+                              precision=precision, span=span, window=window,
+                              softcap=softcap)
 
 
-# ------------------------------------------------- tiled (long-span) form ---
+_attention_xla_jit = jax.jit(
+    attention_xla, static_argnames=("precision", "span", "window", "softcap"))
 
 
-# single-tile VMEM envelope (cache elems per program) — shared contract
-# with models/llama.py's dispatch
-PALLAS_ATTN_MAX_ELEMS = 2 ** 21
+def decode_attention_tiled(q, k, k_scale, v, v_scale, pos, *,
+                           precision: str = "fast", span: int | None = None,
+                           window: int = 0, softcap: float = 0.0):
+    """Single-token `decode_attention` (one form serves every span)."""
+    return decode_attention(q, k, k_scale, v, v_scale, pos, t=1,
+                            precision=precision, span=span, window=window,
+                            softcap=softcap)
 
 
-def _attn_tiled_kernel(kvh, g, ts, scale, fast, window, softcap,
-                       q_ref, k_ref, ks_ref, v_ref, vs_ref, pos_ref,
-                       out_ref, acc_ref, m_ref, l_ref):
-    """Flash-decoding over S-tiles: grid (B, span/ts), online softmax in
-    VMEM scratch, so the working set is one (kvh, ts, hd) K/V tile instead
-    of the whole span — any span fits. t == 1 only (the engine's decode
-    scan always steps single tokens); cross-head single-matmul form with
-    off-block scores masked to -inf, so per-tile work is one
-    (R, hd) x (hd, kvh*ts) dot instead of kvh tiny ones."""
-    dt = jnp.bfloat16 if fast else jnp.float32
-    prec = jax.lax.Precision.DEFAULT if fast else jax.lax.Precision.HIGHEST
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    pos = pos_ref[i, 0]
-    hd = k_ref.shape[3]
-    r = kvh * g
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-        m_ref[:] = jnp.full_like(m_ref, NEG_INF)
-        l_ref[:] = jnp.zeros_like(l_ref)
-
-    q = q_ref[0].reshape(r, hd).astype(dt)
-    k2 = k_ref[0].reshape(kvh * ts, hd).astype(dt)
-    v2 = v_ref[0].reshape(kvh * ts, hd).astype(dt)
-    scores = jax.lax.dot_general(
-        q, k2, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=prec)   # (R, KVH*ts)
-    scores = scores * (ks_ref[0].reshape(1, kvh * ts).astype(jnp.float32)
-                       * scale)
-    if softcap:
-        scores = softcap * jnp.tanh(scores * (1.0 / softcap))
-    rr = jax.lax.broadcasted_iota(jnp.int32, (r, kvh * ts), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (r, kvh * ts), 1)
-    own = (cc // ts) == (rr // g)
-    causal = (j * ts + cc % ts) <= pos
-    if window:
-        causal &= (j * ts + cc % ts) > pos - window
-    scores = jnp.where(own & causal, scores, NEG_INF)
-
-    m_old = m_ref[:, :1]                                      # (R, 1)
-    m_new = jnp.maximum(m_old, jnp.max(scores, axis=-1, keepdims=True))
-    m_ref[:] = jnp.broadcast_to(m_new, m_ref.shape)
-    alpha = jnp.exp(m_old - m_new)
-    p = jnp.exp(scores - m_new)                               # (R, KVH*ts)
-    l_ref[:] = l_ref[:] * alpha + jnp.sum(p, axis=-1, keepdims=True)
-    pv = (p * vs_ref[0].reshape(1, kvh * ts).astype(jnp.float32)).astype(dt)
-    acc_ref[:] = acc_ref[:] * alpha + jax.lax.dot_general(
-        pv, v2, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=prec)
-
-    @pl.when(j == pl.num_programs(1) - 1)
-    def _():
-        out_ref[0] = (acc_ref[:] / l_ref[:, :1]).reshape(kvh, g, hd)
-
-
-@functools.partial(jax.jit, static_argnames=("precision", "span",
-                                             "window", "softcap"))
-def decode_attention_tiled(
-    q: jax.Array,        # (B, H, 1, hd) — rope already applied
-    k: jax.Array,        # (B, KVH, S, hd) int8 cache
-    k_scale: jax.Array,  # (B, KVH, S) f32
-    v: jax.Array,
-    v_scale: jax.Array,
-    pos: jax.Array,      # (B,) int32
-    *,
-    precision: str = "fast",
-    span: int | None = None,
-    window: int = 0,
-    softcap: float = 0.0,
-) -> jax.Array:
-    """Single-token GQA decode attention for spans too large for the
-    single-tile kernel: S is processed in 256-row tiles with online
-    softmax, so VMEM use is independent of span. Same contract as
-    decode_attention with t=1 (incl. window/softcap; fully-masked tiles
-    contribute zero probability mass and fall out of the online sums)."""
-    b, h, tt, hd = q.shape
-    assert tt == 1, "tiled decode attention is single-token only"
-    _, kvh, s, _ = k.shape
-    g = h // kvh
-    span = s if span is None else min(span, s)
-    ts = 256
-    assert span % ts == 0, f"span {span} must be a multiple of {ts}"
-
-    qr = q.reshape(b, kvh, g, hd)
-    scale = 1.0 / (hd ** 0.5)
-    r = kvh * g
-
-    out = pl.pallas_call(
-        functools.partial(_attn_tiled_kernel, kvh, g, ts, scale,
-                          precision == "fast", window, softcap),
-        grid=(b, span // ts),
-        in_specs=[
-            pl.BlockSpec((1, kvh, g, hd), lambda i, j: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, kvh, ts, hd), lambda i, j: (i, 0, j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, kvh, 1, ts), lambda i, j: (i, 0, 0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, kvh, ts, hd), lambda i, j: (i, 0, j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, kvh, 1, ts), lambda i, j: (i, 0, 0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # pos (B, 1)
-        ],
-        out_specs=pl.BlockSpec((1, kvh, g, hd), lambda i, j: (i, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, kvh, g, hd), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((r, hd), jnp.float32),
-            pltpu.VMEM((r, 128), jnp.float32),
-            pltpu.VMEM((r, 128), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=running_interpreted(),
-    )(qr, k, k_scale.reshape(b, kvh, 1, s), v,
-      v_scale.reshape(b, kvh, 1, s), pos.reshape(b, 1).astype(jnp.int32))
-
-    return out.reshape(b, h, 1, hd)
-
-
-# small-KV envelope for the ONE-KERNEL insert+attend fusion: the whole
-# per-batch span block writes back every step (out blocks are written
-# whole), so the fusion only pays at geometries where that block is small
-# — 1B-class GQA (KVH*span*hd <= 2^17 i8 elements ~ 128KB x2 caches).
-# At 7B/MHA shapes the split pair stays (the r2 finding: full-block
-# write-back was ~half the attention-path HBM traffic there).
-FUSED_ATTN_MAX_ELEMS = 2 ** 17
-
-
-def _fused_attn_kernel(kvh, g, scale, fast, window, softcap,
-                       q_ref, kn_ref, vn_ref, k_ref, ks_ref, v_ref, vs_ref,
-                       pos_ref, out_ref, ko_ref, kso_ref, vo_ref, vso_ref):
-    """t=1 insert+attend in ONE launch (r5, VERDICT r4 #6): at 1B scale
-    the split pair is dispatch-bound (17.6us/layer vs ~3us of KV bytes,
-    budget1b v2), so the second launch is pure overhead. The insert is
-    the same head-vectorized select the insert kernel uses, over the span
-    prefix block this kernel already holds; attention then runs the cross
-    form on the updated VALUES (no re-read). Positions >= span never
-    row-match (finished slots: insert no-ops, output unused)."""
-    i = pl.program_id(0)
-    pos = pos_ref[i, 0]
-    s = k_ref.shape[2]
-    hd = k_ref.shape[3]
-    dt = jnp.bfloat16 if fast else jnp.float32
-    prec = jax.lax.Precision.DEFAULT if fast else jax.lax.Precision.HIGHEST
-
-    row_abs = jax.lax.broadcasted_iota(jnp.int32, (kvh, s, 1), 1)
-    col_abs = jax.lax.broadcasted_iota(jnp.int32, (kvh, 1, s), 2)
-
-    def upd(c_ref, sc_ref, new):          # new (KVH, 1, hd) f32
-        amax = jnp.max(jnp.abs(new), axis=-1)
-        sc_new = amax / 127.0
-        safe = jnp.where(sc_new == 0, 1.0, sc_new)
-        qn = jnp.clip(jnp.rint(new / safe[..., None]), -127, 127
-                      ).astype(jnp.int8)
-        c = jnp.where(row_abs == pos, qn, c_ref[0])
-        scv = jnp.where(col_abs == pos, sc_new[:, 0][:, None, None],
-                        sc_ref[0])
-        return c, scv
-
-    k2, ks2 = upd(k_ref, ks_ref, kn_ref[0].astype(jnp.float32))
-    ko_ref[0] = k2
-    kso_ref[0] = ks2
-    v2, vs2 = upd(v_ref, vs_ref, vn_ref[0].astype(jnp.float32))
-    vo_ref[0] = v2
-    vso_ref[0] = vs2
-
-    # cross-head attention on the updated values (ops/attention.py
-    # _attn_kernel cross branch, operating on values instead of refs)
-    r = kvh * g
-    q = q_ref[0].reshape(r, hd).astype(dt)
-    k2f = k2.reshape(kvh * s, hd).astype(dt)
-    v2f = v2.reshape(kvh * s, hd).astype(dt)
-    scores = jax.lax.dot_general(
-        q, k2f, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=prec)
-    scores = scores * (ks2.reshape(1, kvh * s).astype(jnp.float32) * scale)
-    if softcap:
-        scores = softcap * jnp.tanh(scores * (1.0 / softcap))
-    rr = jax.lax.broadcasted_iota(jnp.int32, (r, kvh * s), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (r, kvh * s), 1)
-    own = (cc // s) == (rr // g)
-    causal = (cc % s) <= pos
-    if window:
-        causal &= (cc % s) > pos - window
-    scores = jnp.where(own & causal, scores, NEG_INF)
-    m = jnp.max(scores, axis=-1, keepdims=True)
-    p = jnp.exp(scores - m)
-    p = p / jnp.sum(p, axis=-1, keepdims=True)
-    pv = (p * vs2.reshape(1, kvh * s).astype(jnp.float32)).astype(dt)
-    out = jax.lax.dot_general(
-        pv, v2f, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=prec)
-    out_ref[0] = out.reshape(kvh, g, hd)
-
-
-def _decode_attention_fused(q, k_new, v_new, k, k_scale, v, v_scale, pos,
-                            span, precision, window, softcap):
-    b, h, _, hd = q.shape
-    _, kvh, s, _ = k.shape
-    g = h // kvh
-    scale = 1.0 / (hd ** 0.5)
-    qr = q.reshape(b, kvh, g, hd)
-    ks4 = k_scale.reshape(b, kvh, 1, s)
-    vs4 = v_scale.reshape(b, kvh, 1, s)
-
-    blk = lambda *shape: pl.BlockSpec(
-        (1, *shape), lambda i: (i,) + (0,) * len(shape),
-        memory_space=pltpu.VMEM)
-
-    out, ko, kso, vo, vso = pl.pallas_call(
-        functools.partial(_fused_attn_kernel, kvh, g, scale,
-                          precision == "fast", window, softcap),
-        grid=(b,),
-        in_specs=[
-            blk(kvh, g, hd),
-            blk(kvh, 1, hd),
-            blk(kvh, 1, hd),
-            blk(kvh, span, hd),             # span prefix, aliased out
-            blk(kvh, 1, span),
-            blk(kvh, span, hd),
-            blk(kvh, 1, span),
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # pos (B, 1)
-        ],
-        out_specs=(blk(kvh, g, hd), blk(kvh, span, hd), blk(kvh, 1, span),
-                   blk(kvh, span, hd), blk(kvh, 1, span)),
-        out_shape=(
-            jax.ShapeDtypeStruct((b, kvh, g, hd), jnp.float32),
-            jax.ShapeDtypeStruct(k.shape, jnp.int8),
-            jax.ShapeDtypeStruct(ks4.shape, jnp.float32),
-            jax.ShapeDtypeStruct(v.shape, jnp.int8),
-            jax.ShapeDtypeStruct(vs4.shape, jnp.float32),
-        ),
-        input_output_aliases={3: 1, 4: 2, 5: 3, 6: 4},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-        ),
-        interpret=running_interpreted(),
-    )(qr, k_new, v_new, k, ks4, v, vs4,
-      pos.reshape(b, 1).astype(jnp.int32))
-
-    return (out.reshape(b, h, 1, hd), ko, kso.reshape(b, kvh, s),
-            vo, vso.reshape(b, kvh, s))
-
-
-@functools.partial(jax.jit, static_argnames=("t", "precision", "span",
-                                             "window", "softcap"))
 def decode_attention_update(
     q: jax.Array,        # (B, H, t, hd) — rope applied
     k_new: jax.Array,    # (B, KVH, t, hd) f32 — rope applied
     v_new: jax.Array,    # (B, KVH, t, hd) f32
-    k: jax.Array,        # (B, KVH, S, hd) int8 cache (donated/aliased)
+    k: jax.Array,        # (B, KVH, S, hd) int8 cache
     k_scale: jax.Array,  # (B, KVH, S) f32
     v: jax.Array,
     v_scale: jax.Array,
@@ -633,31 +172,11 @@ def decode_attention_update(
     window: int = 0,
     softcap: float = 0.0,
 ):
-    """Cache-insert + GQA decode attention: quantizes the t new K/V rows to
-    int8, writes them at pos..pos+t-1 (block-windowed, aliased — no full
-    cache write-back), and attends over the first `span` rows of the
-    updated cache. Returns (out (B, H, t, hd) f32, k, k_scale, v,
-    v_scale).
-
-    At t=1 small-KV geometries (KVH*span*hd <= FUSED_ATTN_MAX_ELEMS) the
-    pair fuses into ONE kernel — at 1B scale the two launches are
-    dispatch-bound (budget1b v2), and the fused form's full span-block
-    write-back is cheap there (~32KB/batch)."""
-    s = k.shape[2]
-    eff_span = s if span is None else min(span, s)
-    # eff_span must be a 128-multiple STRICTLY: the kernel's cross-form
-    # (KVH, 1, span) -> (1, KVH*span) scale reshape merges into the lane
-    # dim, which Mosaic only lowers at span % 128 == 0 (a whole-cache
-    # span of e.g. 64 compiles in interpret mode but aborts the real
-    # compiler — caught by tpu_compile_check, r5-s1)
-    if (t == 1 and eff_span % 128 == 0
-            and k.shape[1] * eff_span * k.shape[3] <= FUSED_ATTN_MAX_ELEMS):
-        return _decode_attention_fused(
-            q, k_new, v_new, k, k_scale, v, v_scale, pos,
-            eff_span, precision, window, softcap)
+    """Cache insert + decode attention over the updated cache. Returns
+    (out (B, H, t, hd) f32, k, k_scale, v, v_scale)."""
     k, k_scale, v, v_scale = kv_cache_insert(
         k_new, v_new, k, k_scale, v, v_scale, pos, t=t)
     out = decode_attention(q, k, k_scale, v, v_scale, pos, t=t,
-                           precision=precision, span=span,
-                           window=window, softcap=softcap)
+                           precision=precision, span=span, window=window,
+                           softcap=softcap)
     return out, k, k_scale, v, v_scale

@@ -1,4 +1,4 @@
-"""Shared helpers for the Pallas MMQ kernels."""
+"""Shared helpers for the compute ops and their Pallas kernels."""
 
 from __future__ import annotations
 
@@ -7,11 +7,9 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ..quant.layouts import fp16_bits_to_f32  # re-export for kernels
-
 __all__ = [
-    "fp16_bits_to_f32", "running_interpreted",
-    "pad_rows", "pad_cols", "round_up", "pick_block", "choose_bm",
+    "running_interpreted", "on_gpu", "pad_rows", "pad_cols", "round_up",
+    "next_pow2",
 ]
 
 
@@ -19,61 +17,29 @@ def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-_FORCE_INTERPRET = False
+def next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
 
 
 @functools.cache
-def _on_cpu() -> bool:
-    return jax.devices()[0].platform == "cpu"
+def _platform() -> str:
+    return jax.devices()[0].platform
 
 
 def running_interpreted() -> bool:
-    """Pallas kernels compile for TPU; on CPU hosts (tests, virtual meshes)
-    they run in interpreter mode automatically. utils/profiling.py's
-    force_interpret() flips _FORCE_INTERPRET for python-level kernel
-    debugging on real devices."""
-    return _FORCE_INTERPRET or _on_cpu()
+    """Pallas kernels compile for the GPU (Triton route); on a CPU backend
+    (the test suite, virtual meshes) they run in interpret mode."""
+    return _platform() == "cpu"
 
 
-def unpack_bitplanes_tile(v: jax.Array, sbt: int) -> jax.Array:
-    """Mosaic-safe single-bit plane unpack, K-major: (sbt*32, TM) packed
-    u8 -> (sbt*256, TM) i32 bits in element order (byte row j of a
-    32-row superblock group holds elements {32b + j} at bit b — the
-    q5_k/q3_k high-bit and legacy fifth-bit plane layout)."""
-    vi = v.astype(jnp.int32)
-    parts = []
-    for s in range(sbt):
-        sl = vi[s * 32:(s + 1) * 32, :]
-        parts.extend((sl >> b) & 1 for b in range(8))
-    return jnp.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
-
-
-def unpack_nibbles_tile(v: jax.Array, sbt: int) -> jax.Array:
-    """Mosaic-safe nibble unpack, K-major: (sbt*128, TM) packed u8 ->
-    (sbt*256, TM) i32 codes in element order (packed byte j of a superblock =
-    elem j | elem j+128 << 4; see quant/layouts.py). u8 shifts don't lower on
-    TPU — everything runs in int32."""
-    vi = v.astype(jnp.int32)
-    parts = []
-    for s in range(sbt):
-        sl = vi[s * 128:(s + 1) * 128, :]
-        parts.append(sl & 0xF)
-        parts.append(sl >> 4)
-    return jnp.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
-
-
-def unpack_crumbs_tile(v: jax.Array, sbt: int) -> jax.Array:
-    """Mosaic-safe 2-bit unpack, K-major: (sbt*64, TM) packed u8 ->
-    (sbt*256, TM) i32 codes in element order (packed byte j of a superblock
-    holds elems j, j+64, j+128, j+192 at bits 0, 2, 4, 6; see
-    quant/layouts.py). Everything runs in int32 — u8 shifts don't lower on
-    TPU."""
-    vi = v.astype(jnp.int32)
-    parts = []
-    for s in range(sbt):
-        sl = vi[s * 64:(s + 1) * 64, :]
-        parts.extend((sl >> sh) & 3 for sh in (0, 2, 4, 6))
-    return jnp.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+def on_gpu() -> bool:
+    """True when the default backend is a GPU: the hand-written kernels are
+    dispatched only there (the CPU takes the plain XLA forms, and the
+    kernels are tested directly in interpret mode)."""
+    return _platform() == "gpu"
 
 
 def pad_rows(a: jax.Array, rows: int) -> jax.Array:
@@ -90,155 +56,3 @@ def pad_cols(a: jax.Array, cols: int) -> jax.Array:
         return a
     pad = [(0, 0)] * (a.ndim - 1) + [(0, cols - a.shape[-1])]
     return jnp.pad(a, pad)
-
-
-def regroup_rows(a, rows_per_step: int, steps: int, pad_to: int):
-    """(steps*rows_per_step, M) -> (steps*pad_to, M): zero-pad each K-step's
-    row group up to pad_to (>= 8) so BlockSpec sublane tiles stay legal.
-    Mosaic rejects dynamic sublane slices at non-8-aligned offsets, so the
-    per-superblock scale rows are regrouped per grid step instead (the pad
-    rows decode to scale 0 and are never used)."""
-    import jax.numpy as jnp
-
-    if rows_per_step == pad_to:
-        return a
-    g = a.reshape(steps, rows_per_step, *a.shape[1:])
-    g = jnp.pad(g, ((0, 0), (0, pad_to - rows_per_step)) + ((0, 0),) * (a.ndim - 1))
-    return g.reshape(steps * pad_to, *a.shape[1:])
-
-
-def pick_block(dim: int, preferred: int, granule: int) -> int:
-    """Largest block size <= preferred that divides `dim` and is a multiple
-    of `granule` (the quantization block / superblock size)."""
-    b = min(preferred, dim)
-    b = b // granule * granule
-    while b > granule and dim % b:
-        b -= granule
-    if b < granule or dim % b:
-        raise ValueError(f"cannot tile dim {dim} with granule {granule}")
-    return b
-
-
-# Measured per-shape tile table (SURVEY.md:296 "per-shape tile tables —
-# Pallas has no autotuner"): (m_lanes, k) -> (block_m, block_k) for decode
-# widths. Keys use the STORED lane width (the loader pads FFN dims to
-# 256-multiples). Shapes not listed fall back to the caller's
-# block_m/block_k (default 2048/1024).
-#
-# ROUND-5 REVISION: the r4 entries (bm=4096, bk=512) were chosen from
-# ISOLATED kernel sweeps; the round-5 interleaved full-model A/B
-# (benchmarks/probe_tiles_e2e.py, r5-s1) found bk=512 NET SLOWER e2e
-# (7B decode 1322 tok/s vs 1435 at (4096, 1024), 3/3 rounds), and the
-# completed isolated factor grid (r5 tiles7b with the never-swept
-# (4096, 1024)/(4096, 2048) candidates) agrees: big bm helps — fewer
-# M-tiles replay the in-kernel activation glue fewer times — but bk
-# wants 1024-2048, not 512. The r4 "(4096, 512) wins every shape"
-# result did not reproduce in either measurement and is superseded.
-TILE_TABLE: dict[tuple[int, int], tuple[int, int]] = {
-    (4096, 4096): (4096, 1024),     # 7B wo
-    (4096, 11264): (4096, 1024),    # 7B down
-    (12288, 4096): (4096, 1024),    # 7B qkv     484.8 vs 461 (bk=512)
-    (22528, 4096): (4096, 2048),    # 7B gate_up 515.2 vs 454 (bk=512)
-    # TinyLlama-1.1B classes: r4-s3 isolated sweep; the r5 e2e arms probe
-    # (tiles1b_e2e) re-validates these against the bk>=1024 rule.
-    (2560, 2048): (4096, 1024),     # 1B qkv
-    (2048, 2048): (4096, 1024),     # 1B wo
-    (11264, 2048): (1024, 2048),    # 1B gate_up   457.2 vs 432.1 GB/s
-    (2048, 5632): (4096, 2816),     # 1B down (5632 = 2x2816; 1024 ∤ 5632)
-    (32000, 2048): (4096, 1024),    # 1B lm_head
-}
-
-# Generic decode-width default within the swept regime: one M-tile
-# (choose_bm degrades bm gracefully for lane widths 4096 doesn't divide,
-# e.g. 22528 -> 2816) with the e2e-validated bk=1024.
-DECODE_TILES = (4096, 1024)
-
-
-# Formats whose in-kernel decode glue is ONE (bk, bk) block-diagonal
-# matrix (mmq_q3_k/q6_k/q8_0) rather than per-superblock (256, 256) dots:
-# their VMEM glue operand grows O(bk^2), so table entries swept on q4_k
-# (per-superblock glue) must not hand them bk > the measured 1024
-# (ADVICE r4: the (11264, 2048) -> bk=2048 entry would mean an 8 MiB
-# double-buffered glue operand).
-_BLOCKDIAG_GLUE_FMTS = frozenset({"q3_k", "q6_k", "q8_0"})
-
-_TILE_MISSES: set[tuple[int, int]] = set()
-
-
-def pick_tiles(m_arr: int, k: int, block_m: int, block_k: int,
-               n: int, fmt: str | None = None) -> tuple[int, int]:
-    """Tile sizes for an MMQ call: at decode widths (n <= 64) the measured
-    TILE_TABLE entry, or the swept decode default within the swept regime
-    (k >= 4096 — the r4-tiles shapes); the caller's defaults otherwise
-    (small-k model shapes keep (2048, 1024) until swept). Decode shapes
-    outside both the table and the swept regime log once so untuned
-    geometries are visible (VERDICT r4 #7)."""
-    if n <= 64:
-        hit = TILE_TABLE.get((m_arr, k))
-        if hit is None and k >= 4096:
-            hit = DECODE_TILES
-        if hit:
-            bm, bk = hit
-            if fmt in _BLOCKDIAG_GLUE_FMTS and bk > 1024:
-                # clamp to the largest VALID divisor <= 1024 so the
-                # kernel's pick_block cannot silently degrade further
-                # (e.g. a naive 1024 clamp at k=5632 would land on 512)
-                bk = 1024
-                while bk > 256 and k % bk:
-                    bk -= 256
-            return bm, bk
-        if (m_arr, k) not in _TILE_MISSES:
-            _TILE_MISSES.add((m_arr, k))
-            import logging
-
-            logging.getLogger("gguf_tpu").info(
-                "mmq decode shape (%d, %d) has no TILE_TABLE entry and is "
-                "outside the swept k>=4096 regime; running untuned "
-                "(%d, %d). Sweep it with benchmarks/probe_tiles7b.py.",
-                m_arr, k, block_m, block_k)
-    return block_m, block_k
-
-
-def choose_bm(m_arr: int, preferred: int) -> int:
-    """M-tile size for the MMQ kernels: the largest 128-multiple <= preferred
-    that divides m_arr (the stored lane width), falling back to `preferred`
-    (the wrapper then zero-pads M at call time — the loader avoids that for
-    big weights by padding FFN dims to 256-multiples at load,
-    models/loader.py:pad_ffn_for_tp). Big M-tiles matter:
-    the same 4096x4096 decode GEMM runs ~40% faster at bm=2048 than bm=512."""
-    mr = round_up(m_arr, 128)
-    if mr <= preferred:
-        return mr
-    for bm in range(preferred, 1023, -128):
-        if mr % bm == 0:
-            return bm
-    return preferred
-
-
-def block16_indicator(bk: int) -> jax.Array:
-    """(bk, bk/16) 0/1 bf16 matrix: column j marks natural columns in
-    per-16 block j. Streamed as a CONSTANT kernel operand so the q2_k/q3_k
-    decode min-term bsum is one DEFAULT-precision dot — the in-kernel
-    iota+HIGHEST form cost as much as the chain ops it saved (r5 suite
-    regression vs probe_kq_ops)."""
-    import numpy as np
-
-    r = np.arange(bk)
-    m = (r[:, None] // 16 == np.arange(bk // 16)[None, :])
-    return jnp.asarray(m.astype(np.float32), jnp.bfloat16)
-
-
-def ink_block_sums(bt: jax.Array, nblk: int, log2_blk: int) -> jax.Array:
-    """Per-2^log2_blk-column sums of a natural-order (BN, BK) VMEM tile as
-    an MXU dot against an iota-built 0/1 matrix — Mosaic rejects the 3D
-    lane reshape a plain segment-sum would need, and the MXU does this for
-    free at decode widths. HIGHEST keeps the sums f32-exact in both
-    precision modes (they feed the min/offset correction terms)."""
-    bk = bt.shape[1]
-    kk = jax.lax.broadcasted_iota(jnp.int32, (bk, nblk), 0)
-    bb = jax.lax.broadcasted_iota(jnp.int32, (bk, nblk), 1)
-    smat = ((kk >> log2_blk) == bb).astype(jnp.float32)
-    return jax.lax.dot_general(
-        bt, smat, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)           # (BN, nblk)

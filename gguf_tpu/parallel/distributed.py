@@ -1,20 +1,20 @@
-"""Multi-host bootstrap: jax.distributed + slice-health check.
+"""Multi-process bootstrap: jax.distributed + a health check.
 
-The reference has no distributed story at all (SURVEY.md §5); the north star
-needs 2-host v5e serving. JAX's builtin runtime is the TPU-native backend:
-`jax.distributed.initialize` wires the hosts over DCN, after which
-`jax.devices()` spans the full slice and the pjit/shard_map code in
-parallel/tp.py runs unchanged — XLA routes the psum/all-gather collectives
-over ICI within a host and DCN across hosts.
+One process can drive all the cards of a host (NVLink joins them all to
+all). Several processes — several hosts, or one process per card — join
+through `jax.distributed.initialize`, after which `jax.devices()` spans
+every card and the pjit/shard_map code in parallel/tp.py runs unchanged;
+XLA hands the psum/all-gather collectives to NCCL.
 
-Usage (same binary on every host):
+Usage (same program in every process):
 
     from gguf_tpu.parallel import init_distributed, make_mesh
-    init_distributed()                       # env-driven on Cloud TPU
+    init_distributed("localhost:12345", num_processes=2, process_id=rank)
     mesh = make_mesh(tp=jax.device_count())  # or tp x dp of your choice
 
-For non-TPU-VM setups pass coordinator_address/num_processes/process_id
-explicitly (mirrors jax.distributed.initialize).
+Nothing in the environment names a cluster here: pass
+coordinator_address/num_processes/process_id explicitly (or set
+COORDINATOR_ADDRESS); called without them this is a single-process no-op.
 """
 
 from __future__ import annotations
@@ -29,16 +29,20 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None,
                      health_check: bool = True,
                      initialization_timeout: int = 300) -> dict:
-    """Initialize the multi-host runtime and (optionally) run a whole-slice
-    health check. Returns a summary dict. Safe to call single-host (no-op
-    when jax.process_count() stays 1 and no coordinator is given).
+    """Initialize the multi-process runtime and (optionally) run a
+    health check over every device. Returns a summary dict. Safe to call
+    single-process (no-op when no coordinator is given).
 
     initialization_timeout bounds how long ranks wait for missing peers at
     bring-up (passed through to jax.distributed.initialize); a dead host is
     a RuntimeError here, not an indefinite hang at the first collective."""
     # env check first: jax.process_count() would initialize the XLA backend
     # and make jax.distributed.initialize() unusable afterwards
-    if coordinator_address or num_processes or _looks_multihost():
+    import os
+
+    coordinator_address = (coordinator_address
+                           or os.environ.get("COORDINATOR_ADDRESS"))
+    if coordinator_address or num_processes:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
@@ -57,30 +61,11 @@ def init_distributed(coordinator_address: str | None = None,
     return info
 
 
-def _looks_multihost() -> bool:
-    """Environment says this process is part of a multi-host slice. Cloud
-    TPU pods usually set no COORDINATOR_ADDRESS — JAX auto-discovers peers
-    from TPU metadata — so also trigger on the TPU pod variables the VM
-    images export (missing any of these silently left a pod running as N
-    independent single-host processes)."""
-    import os
-
-    def multi(var):  # comma-separated peer list with >1 entry
-        v = os.environ.get(var, "")
-        return len([h for h in v.split(",") if h.strip()]) > 1
-
-    return bool(os.environ.get("COORDINATOR_ADDRESS")
-                or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-                or os.environ.get("MEGASCALE_NUM_SLICES")
-                or multi("TPU_WORKER_HOSTNAMES")
-                or multi("TPU_PROCESS_ADDRESSES"))
-
-
 def _psum_health_check() -> bool:
-    """One tiny psum across every chip in the slice: catches a dead ICI
-    link / wedged host before a model load is attempted. The input is
-    built per-process from host-local data (a plain host array cannot be
-    fed to a mesh containing other hosts' non-addressable devices)."""
+    """One tiny psum across every device: catches a dead link or wedged
+    process before a model load is attempted. The input is built
+    per-process from process-local data (a plain host array cannot be fed
+    to a mesh containing other processes' non-addressable devices)."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     devs = np.asarray(jax.devices())

@@ -1,6 +1,6 @@
 """Pipeline parallelism: staggered decode over a pp (x tp) mesh.
 
-Layer-sharding for models whose weights exceed one chip's HBM even after
+Layer-sharding for models whose weights exceed one card's memory even after
 tensor parallelism: stage s holds layers [s*L/pp, (s+1)*L/pp) — stacked into
 single arrays with a leading pp axis so one P("pp", ...) spec shards them
 (the same trick as the MoE expert stacks, quant/layouts.stack_experts).
@@ -11,7 +11,7 @@ index. Every tick every stage computes (no bubble):
 
   tick r, stage s  ->  microbatch (r - s) mod pp
 
-- activations rotate one stage forward per tick (one `ppermute` ring on ICI,
+- activations rotate one stage forward per tick (one `ppermute` ring,
   payload (B/pp, 1, dim) — tiny next to the weight stream);
 - the last stage greedily samples its resident microbatch's next token and
   broadcasts it with a masked psum over "pp"; stage 0 consumes exactly that
@@ -21,17 +21,17 @@ index. Every tick every stage computes (no bubble):
   row (KV caches are stage-local: stage s caches only its own layers).
 
 Warm-up: for r < pp-1 later stages process zero activations; their cache
-writes land at the same rows the first real pass overwrites (the windowed
-insert is an overwrite, ops/attention.py:kv_cache_insert), and the token
+writes land at the same rows the first real pass overwrites (the insert is an
+overwrite, ops/attention.py:kv_cache_insert), and the token
 broadcast is gated on r >= pp-1, so the pipeline converges to exactly the
 single-device decode. After warm-up one real token is emitted per tick
 (each microbatch advances every pp ticks).
 
-Why this shape on TPU: per tick each stage streams only ITS layer weights
+Why this shape: per tick each stage streams only ITS layer weights
 for B/pp rows — at steady state the whole mesh streams each weight exactly
-once per B-row token step, the same HBM traffic as single-chip decode, while
-holding 1/pp of the model per chip. Inter-stage traffic is O(B/pp * dim) per
-tick on ICI. Composes with tp (stage-internal Megatron sharding, psum over
+once per B-row token step, the same memory traffic as single-card decode, while
+holding 1/pp of the model per card. Inter-stage traffic is O(B/pp * dim) per
+tick. Composes with tp (stage-internal Megatron sharding, psum over
 "tp" inside each stage).
 
 Reference tie-in: the reference has no multi-device path at all

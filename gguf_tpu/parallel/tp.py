@@ -18,7 +18,7 @@ result is exact).
 Pallas kernels don't partition under GSPMD, so the whole forward runs inside
 shard_map — each device executes the same program on its local weight shard
 and the only cross-device traffic is one psum after each row-parallel
-projection (riding ICI) plus the final logits all-gather.
+projection plus the final logits all-gather (NCCL over NVLink).
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ REP = "rep"
 
 def make_mesh(tp: int, dp: int = 1, sp: int = 1, ep: int = 1,
               devices=None) -> Mesh:
-    """dp x sp x ep x tp device mesh. tp innermost (tightest ICI ring — one
-    psum per row-parallel projection every layer); ep (expert parallelism,
+    """dp x sp x ep x tp device mesh. tp innermost (one psum per
+    row-parallel projection every layer); ep (expert parallelism,
     one psum per MoE layer, folded into the tp psum) next; sp
     (sequence/context parallelism, one small LSE-combine per attention)
     above; dp outermost (no collectives at all). Every axis always exists so

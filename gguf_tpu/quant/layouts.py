@@ -1,24 +1,25 @@
-"""Device layouts: GGUF block bytes <-> TPU-friendly structure-of-arrays.
+"""Device layouts: GGUF block bytes <-> structure-of-arrays (SoA).
 
-TPUs want aligned, homogeneous arrays, not 144-byte interleaved structs, so at
-load time each quantized matrix is transformed into per-field arrays. Bit
+At load time each quantized matrix is transformed from 144-byte interleaved
+block structs into aligned, homogeneous per-field arrays. Bit
 fidelity is preserved exactly (same 4/6-bit codes, same fp16 scale bits); only
 the arrangement changes. The CPU goldens keep operating on the original GGUF
 bytes, and these transforms are round-trip tested against them.
 
-Nibble repacking is chosen so the in-kernel unpack is concat-friendly on the
-128-lane VPU: within every 256-element superblock, packed byte j (j<128)
+Nibble repacking is chosen so an unpack is concat-friendly: within every
+256-element superblock, packed byte j (j<128)
 holds element j in the low nibble and element j+128 in the high nibble, so
 `concat([v & 0xF, v >> 4], axis=-1)` yields elements in order. (The GGUF
 on-disk nibble order interleaves per 64-element group instead —
 /root/reference/kernels/mmq_q4_k.py:91-99 documents the CUDA-oriented
 layout we are replacing.)
 
-All arrays are stored K-MAJOR (transposed, K-ish dim first, M on lanes):
-TPU Pallas requires block lane dims to be 128-aligned, and M (output
-features) is the only dimension that is always large enough — per-block
-scale arrays have K/32 or K/256 rows, far below 128. K-major also puts the
-kernel's dot in natural (N, K) x (K, M) orientation with zero transposes.
+All arrays are stored K-MAJOR (transposed, K-ish dim first, M last): M
+(output features) is the only dimension that is always large — per-block
+scale arrays have K/32 or K/256 rows. K-major also puts the dot in natural
+(N, K) x (K, M) orientation with zero transposes. Whether the GPU kernels
+should read the GGUF blocks as stored instead is an open design question
+(ROADMAP.md).
 
 Per-format fields (M x K logical matrix, SB = K/256 superblocks per row):
 
@@ -97,8 +98,8 @@ class QuantTensor:
 
     @property
     def lanes(self) -> int:
-        """STORED lane width (M incl. any loader padding) — the value the
-        kernels' choose_bm tiles against; key for ops.common.TILE_TABLE."""
+        """STORED output width (M incl. any loader padding) — the last axis
+        of every field."""
         codes = self.ql if self.fmt == "q6_k" else self.qs
         return codes.shape[-1]
 
@@ -197,9 +198,7 @@ def f32_to_fp16_bits(x: jax.Array) -> jax.Array:
     f32_infty = jnp.uint32(255 << 23)
     f16_max = jnp.uint32((127 + 16) << 23)
     denorm_magic_bits = jnp.uint32(126 << 23)  # the bits of 0.5f
-    # written as the float literal, not a bitcast of the scalar constant:
-    # Mosaic's tpu.bitcast only accepts vectors, so a scalar bitcast aborts
-    # kernel lowering (hit when fp16_round moved inside mmq_legacy)
+    # written as the float literal, not a bitcast of the scalar constant
     denorm_magic = jnp.float32(0.5)
 
     # large: inf (0x7C00) or NaN (0x7E00)
@@ -230,10 +229,9 @@ def fp16_round(x: jax.Array) -> jax.Array:
 
 # Q8_0 "plane" packing (chosen at load when k % 256 == 0, RECORDED in
 # QuantTensor.q8_plane): within each 256-row group, row r holds element
-# (r % 8)*32 + r // 8 — every row's 32-block id is (row % 8), so the
-# kernel's per-32-block scale multiply is a pltpu.repeat copy-tile (the
-# same ~14% Mosaic lowering win as the K-quant plane layouts). K not
-# divisible by 256 (the reference's K=32..128 sweep) keeps element order.
+# (r % 8)*32 + r // 8 — every row's 32-block id is (row % 8), so a
+# per-32-block scale multiply is a tiled pattern. K not divisible by 256
+# (the reference's K=32..128 sweep) keeps element order.
 _Q8_PLANE_ELEM = ((np.arange(256) % 8) * 32 + np.arange(256) // 8)
 _Q8_PLANE_INV = np.argsort(_Q8_PLANE_ELEM)
 
@@ -294,12 +292,10 @@ def _repack_nibbles(codes: np.ndarray) -> np.ndarray:
 # Q4_K "plane" packing: byte row rb of a superblock packs the two elements
 # (block g = rb % 8, positions p = rb // 8 and p + 16), so the kernel's
 # fixed [lo(0:128); hi(128:256)] unpack lands rows whose 32-block id is
-# (row % 8) for BOTH halves. The per-32-block scale multiply then becomes a
-# plain tiled pattern (pltpu.repeat(scales, 16) — a copy-tile, the cheap
-# Mosaic op) instead of a 3D reshape-broadcast, which on-chip A/B measured
-# ~14% faster at 4096x4096 n=16 (benchmarks/probe_q4k_ab.py). The matching
-# activation-column permutation is one XLA transpose in the mmq wrapper
-# (ops/mmq_q4_k.py: per superblock (g:8, h:2, p':16) -> (h, p', g)).
+# (row % 8) for BOTH halves, so the per-32-block scale multiply is a
+# tiled pattern. The matching activation-column permutation is one XLA
+# transpose in the MMQ wrapper (ops/mmq.py:permute_acts_q4k: per
+# superblock (g:8, h:2, p':16) -> (h, p', g)).
 _Q4K_PLANE_LO = ((np.arange(128) % 8) * 32 + np.arange(128) // 8)
 
 
@@ -323,7 +319,8 @@ def _unpack_nibbles_plane(packed: np.ndarray) -> np.ndarray:
 # of the elements landing at unpack rows {rh, 64+rh, 128+rh, 192+rh} at bit
 # pairs 0/2/4/6 — the kernel's fixed [lo;hi] nibble unpack and 4-way crumb
 # unpack then agree row-for-row, and every row's 16-block id is (row % 16),
-# so the per-16 scale multiply is pltpu.repeat(scales, 8) per plane.
+# so the per-16 scale multiply is a tiled pattern per plane
+# (ops/mmq.py:_q6_k_decode reads it as a (4, 16) grid of rows).
 _Q6K_PLANE_LO = ((np.arange(128) % 16) * 16 + np.arange(128) // 16)
 _Q6K_ROW = np.arange(256)
 _Q6K_ELEM_AT_ROW = np.where(
@@ -346,19 +343,15 @@ def _repack_crumbs(codes: np.ndarray) -> np.ndarray:
 # Q2_K/Q3_K "plane" packing: the kernel's fixed 4-way crumb unpack (shift
 # 2s, byte row j -> unpacked row u = s*64 + j) lands element
 # (j % 16)*16 + s*4 + j//16, so every unpacked row's 16-block id is
-# (row % 16) and the per-16 scale multiply is pltpu.repeat(scale16, 4) per
-# 64-row plane — the same copy-tile trick as the Q4_K/Q6_K plane layouts
-# (the 3D reshape-broadcast it replaces cost ~14% of the q4_k kernel,
-# benchmarks/probe_q4k_ab.py). The matching activation-column permutation
-# is one XLA transpose (prefill) or an in-kernel 0/1-matrix matmul
-# (decode) in ops/mmq_q2_k.py / mmq_q3_k.py.
+# (row % 16) and the per-16 scale multiply is a tiled pattern per 64-row
+# plane, as in the Q4_K/Q6_K plane layouts.
 _Q23_PLANE_E = ((np.arange(64)[None, :] % 16) * 16
                 + np.arange(4)[:, None] * 4
                 + np.arange(64)[None, :] // 16)          # (4, 64): elem(s, j)
 
 # Q3_K high-bit plane in the SAME element order: qh byte row r, bit b holds
 # the high bit of the element at unpacked row u = b*32 + r of the 8-way
-# 1-bit unpack (common.py:unpack_bitplanes_tile), which the crumb layout
+# 1-bit unpack (shift b, mask 1), which the crumb layout
 # pins to element (r%16)*16 + (b//2)*4 + (b%2)*2 + r//16.
 _Q3K_QH_E = ((np.arange(32)[None, :] % 16) * 16
              + (np.arange(8)[:, None] // 2) * 4
@@ -988,8 +981,7 @@ def _dequant_legacy(t: QuantTensor) -> jax.Array:
 
 
 # IQ4 codebook packed into four i32 words (4 byte lanes each, little-endian)
-# so the lookup is pure shift/mask vector ops — a 16-entry gather would
-# serialize on TPU (see v5e notes on gather/scatter).
+# so the lookup is pure shift/mask vector ops instead of a 16-entry gather.
 _IQ4_WORDS = None
 
 

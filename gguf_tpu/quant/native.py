@@ -32,11 +32,12 @@ Q6K_BLOCK_BYTES = 210
 
 
 def _build_library() -> None:
-    subprocess.run(
-        ["make", "-C", _CSRC_DIR],
-        check=True,
-        capture_output=True,
-    )
+    proc = subprocess.run(["make", "-C", _CSRC_DIR], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building the native codec (make -C {_CSRC_DIR}) failed:\n"
+            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
 
 
 def get_lib() -> ctypes.CDLL:
@@ -95,17 +96,38 @@ def _as_f32_c(x: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.float32)
 
 
+# superblocks per worker below which one thread quantizes the whole array
+_MIN_BLOCKS_PER_THREAD = 4096
+
+
 def _quantize_kquant(x: np.ndarray, fmt: str, block_bytes: int) -> np.ndarray:
+    """Flat K-quant bytes of x. Superblocks quantize independently, so a
+    large array is split into block ranges across threads (ctypes releases
+    the GIL while the C code runs); the bytes are identical either way."""
+    from concurrent.futures import ThreadPoolExecutor
+
     x = _as_f32_c(x.reshape(-1))
     n = x.size
     if n % QK_K:
         raise ValueError(f"{fmt} needs size % 256 == 0, got {n}")
-    out = np.empty(n // QK_K * block_bytes, dtype=np.uint8)
-    getattr(get_lib(), f"gq_quantize_{fmt}")(
-        x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(n),
-    )
+    nb = n // QK_K
+    out = np.empty(nb * block_bytes, dtype=np.uint8)
+    fn = getattr(get_lib(), f"gq_quantize_{fmt}")
+
+    def run(lo: int, hi: int) -> None:
+        fn(ctypes.cast(x.ctypes.data + lo * QK_K * 4,
+                       ctypes.POINTER(ctypes.c_float)),
+           ctypes.cast(out.ctypes.data + lo * block_bytes,
+                       ctypes.POINTER(ctypes.c_uint8)),
+           ctypes.c_int64((hi - lo) * QK_K))
+
+    workers = max(1, min(os.cpu_count() or 1, nb // _MIN_BLOCKS_PER_THREAD))
+    if workers == 1:
+        run(0, nb)
+    else:
+        edges = [nb * i // workers for i in range(workers + 1)]
+        with ThreadPoolExecutor(workers) as ex:
+            list(ex.map(run, edges[:-1], edges[1:]))
     return out
 
 
@@ -140,50 +162,17 @@ def dequantize_q3_k_native(q: np.ndarray, n_elems: int) -> np.ndarray:
 
 def quantize_q4_k(x: np.ndarray) -> np.ndarray:
     """Quantize a float array (size % 256 == 0) to flat Q4_K bytes (uint8)."""
-    x = _as_f32_c(x.reshape(-1))
-    n = x.size
-    if n % QK_K:
-        raise ValueError(f"Q4_K needs size % 256 == 0, got {n}")
-    out = np.empty(n // QK_K * Q4K_BLOCK_BYTES, dtype=np.uint8)
-    lib = get_lib()
-    lib.gq_quantize_q4_k(
-        x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(n),
-    )
-    return out
+    return _quantize_kquant(x, "q4_k", Q4K_BLOCK_BYTES)
 
 
 def quantize_q5_k(x: np.ndarray) -> np.ndarray:
     """Quantize a float array (size % 256 == 0) to flat Q5_K bytes (uint8)."""
-    x = _as_f32_c(x.reshape(-1))
-    n = x.size
-    if n % QK_K:
-        raise ValueError(f"Q5_K needs size % 256 == 0, got {n}")
-    out = np.empty(n // QK_K * Q5K_BLOCK_BYTES, dtype=np.uint8)
-    lib = get_lib()
-    lib.gq_quantize_q5_k(
-        x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(n),
-    )
-    return out
+    return _quantize_kquant(x, "q5_k", Q5K_BLOCK_BYTES)
 
 
 def quantize_q6_k(x: np.ndarray) -> np.ndarray:
     """Quantize a float array (size % 256 == 0) to flat Q6_K bytes (uint8)."""
-    x = _as_f32_c(x.reshape(-1))
-    n = x.size
-    if n % QK_K:
-        raise ValueError(f"Q6_K needs size % 256 == 0, got {n}")
-    out = np.empty(n // QK_K * Q6K_BLOCK_BYTES, dtype=np.uint8)
-    lib = get_lib()
-    lib.gq_quantize_q6_k(
-        x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(n),
-    )
-    return out
+    return _quantize_kquant(x, "q6_k", Q6K_BLOCK_BYTES)
 
 
 def dequantize_q4_k_native(q: np.ndarray, n_elems: int) -> np.ndarray:

@@ -238,43 +238,36 @@ def cmd_serve(args):
 
 
 def cmd_bench(args):
+    """Decode-step time of a GGUF model at one batch: host-clock median
+    around block_until_ready after a warm-up (utils/benchmark.py), with
+    the device named beside it."""
     import jax
     import jax.numpy as jnp
 
     from ..models import (MMOpts, forward, fuse_llama_params, init_kv_cache,
                           load_llama)
-    from ..utils.benchmark import slope_time
+    from ..utils.benchmark import device_info, time_call
+    from ..utils.paths import enable_compile_cache
 
-    _ = np.asarray(jnp.zeros((1, 1)))
+    enable_compile_cache()
     cfg, params = load_llama(args.model)
     params = fuse_llama_params(params)
     batch = args.batch
     cache = init_kv_cache(cfg, batch=batch, max_seq=args.seq)
-    tokens0 = jnp.zeros((batch, 1), jnp.int32)
-    pos0 = jnp.arange(batch, dtype=jnp.int32)
-    opts = MMOpts(precision="fast")
-
-    def make(iters):
-        def many(params, tokens, pos, cache):
-            def body(i, carry):
-                toks, pos, cache = carry
-                logits, cache = forward(params, cfg, toks, pos, cache, opts,
-                                        span=128 if args.seq >= 128 else None)
-                nxt = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
-                return nxt[:, None], pos + 1, cache
-            toks, pos, _ = jax.lax.fori_loop(0, iters, body,
-                                             (tokens, pos, cache))
-            return toks.sum() + pos.sum()
-        return many
-
-    t = slope_time(make, (params, tokens0, pos0, cache), lo=10, hi=60, reps=5)
+    tokens = jnp.zeros((batch, 1), jnp.int32)
+    pos = jnp.arange(batch, dtype=jnp.int32)
+    span = 128 if args.seq >= 128 else None
+    step = jax.jit(lambda p, t, q, c: forward(
+        p, cfg, t, q, c, MMOpts(precision="fast"), span=span)[0])
+    t = time_call(step, params, tokens, pos, cache)
     wbytes = sum(int(np.prod(a.shape)) * a.dtype.itemsize
                  for a in jax.tree_util.tree_leaves(params))
     print(json.dumps({
         "model": args.model, "batch": batch,
-        "step_us": round(t * 1e6, 1),
-        "tokens_per_s": round(batch / t, 1),
-        "weight_stream_gbps": round(wbytes / t / 1e9, 1),
+        "step_us": t * 1e6,
+        "tokens_per_s": batch / t,
+        "weight_stream_gbps": wbytes / t / 1e9,
+        "device": device_info(),
     }))
 
 

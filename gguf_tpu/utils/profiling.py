@@ -1,23 +1,13 @@
-"""Tracing and in-kernel debugging helpers.
+"""Tracing helpers: jax.profiler traces for timeline analysis and named
+regions that show up in them.
 
-SURVEY.md §5's auxiliary-subsystem plan: jax.profiler traces for timeline
-analysis, Pallas interpreter mode for kernel debugging (the TPU-native
-stand-in for CUDA sanitizers), and the roofline GB/s harness
-(utils/benchmark.py).
+    from gguf_tpu.utils.profiling import trace, annotate
 
-    from gguf_tpu.utils.profiling import trace, annotate, force_interpret
-
-    with trace("/tmp/jax-trace"):            # open in xprof/tensorboard
+    with trace("chiprun_out/trace"):         # open in xprof/tensorboard
         step(...)
 
     with annotate("decode-step"):            # named region in the timeline
         step(...)
-
-    with force_interpret():                  # run Pallas kernels interpreted
-        mmq_q4_k(w, x)                       # (python-level debugging, slow)
-
-force_interpret clears the jit caches on entry/exit — compiled functions
-bake the interpret flag in at trace time.
 """
 
 from __future__ import annotations
@@ -42,22 +32,3 @@ def annotate(name: str):
     import jax
 
     return jax.profiler.TraceAnnotation(name)
-
-
-@contextlib.contextmanager
-def force_interpret():
-    """Run every Pallas kernel in interpreter mode within the context —
-    kernels execute as python/XLA on the host, so jnp/np debugging,
-    breakpoints and NaN-hunting work on real devices. Clears jit caches on
-    entry and exit (interpret= is baked in at trace time)."""
-    import jax
-
-    from ..ops import common
-
-    common._FORCE_INTERPRET = True
-    jax.clear_caches()
-    try:
-        yield
-    finally:
-        common._FORCE_INTERPRET = False
-        jax.clear_caches()

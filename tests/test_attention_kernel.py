@@ -1,4 +1,5 @@
-"""Fused decode-attention kernel (ops/attention.py) vs a numpy reference."""
+"""Decode attention and cache insert over the int8 KV cache
+(ops/attention.py) vs numpy references."""
 
 import numpy as np
 import pytest
@@ -6,6 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from gguf_tpu.ops import attention as attn
 from gguf_tpu.ops.attention import decode_attention
 
 
@@ -181,7 +183,8 @@ def test_decode_attention_update_roundtrip():
     (3, 8, 1, 512, 128),    # MQA
 ])
 def test_tiled_decode_attention_matches_single_tile(b, h, kvh, s, hd):
-    """Flash-decoding over 256-row S-tiles == the single-tile kernel."""
+    """The single-token entry point over a 256-row span and the whole
+    cache == `decode_attention` over the whole cache."""
     from gguf_tpu.ops.attention import decode_attention_tiled
 
     rng = np.random.default_rng(hash((b, h, kvh)) % 2**31)
@@ -224,9 +227,8 @@ def _reference_swa(q, k_i, ks, v_i, vs, pos, t, window=0, softcap=0.0):
 @pytest.mark.parametrize("t", [1, 4])
 @pytest.mark.parametrize("window,softcap", [(16, 0.0), (0, 10.0), (16, 10.0)])
 def test_decode_attention_window_softcap(t, window, softcap):
-    """Sliding-window mask and score soft-capping in the fused kernel
-    (gemma2-family) against the f64 einsum reference — both the cross
-    (t=1) and per-head-loop (t>1) bodies."""
+    """Sliding-window mask and score soft-capping (gemma2-family) against
+    the f64 einsum reference, for single-token and multi-token steps."""
     b, h, kvh, s, hd = 3, 8, 2, 64, 64
     rng = np.random.default_rng(hash((t, window)) % 2**31)
     q = jnp.asarray(rng.standard_normal((b, h, t, hd)), jnp.float32)
@@ -249,8 +251,8 @@ def test_decode_attention_window_softcap(t, window, softcap):
 
 
 def test_tiled_decode_attention_window_softcap():
-    """The flash-decoding S-tiled kernel agrees with the single-tile form
-    under window + softcap (fully-masked tiles drop out of the sums)."""
+    """The single-token entry point over a span agrees with the whole-cache
+    form under window + softcap."""
     from gguf_tpu.ops.attention import decode_attention_tiled
 
     b, h, kvh, s, hd = 2, 8, 2, 512, 64
@@ -267,3 +269,63 @@ def test_tiled_decode_attention_window_softcap():
         q, k_i, ks, v_i, vs, pos, precision="high", span=512,
         window=64, softcap=8.0))
     np.testing.assert_allclose(bt, a, atol=2e-3)
+
+
+def _cache(rng, b, kvh, s, hd):
+    k = jnp.asarray(rng.integers(-127, 128, (b, kvh, s, hd)), jnp.int8)
+    sc = jnp.asarray(rng.uniform(0.005, 0.02, (b, kvh, s)), jnp.float32)
+    return k, sc
+
+
+@pytest.mark.parametrize("hd,b,h,kvh,span,window,softcap", [
+    (64, 3, 8, 2, 128, 0, 0.0),       # GQA
+    (64, 2, 8, 2, 512, 0, 0.0),       # whole cache
+    (128, 2, 4, 4, 256, 0, 0.0),      # MHA at head_dim 128
+    (128, 1, 8, 1, 192, 0, 0.0),      # MQA, span not a power of two
+    (64, 2, 8, 2, 256, 48, 0.0),      # sliding window
+    (64, 2, 8, 2, 256, 0, 20.0),      # soft-capped scores
+])
+def test_decode_attention_precisions_match_reference(hd, b, h, kvh, span,
+                                                     window, softcap):
+    """Single-token decode over a span prefix at both precisions against
+    the f64 reference on the span: bf16 operands within 1e-2 of max|ref|,
+    f32 at HIGHEST within 1e-5. Rows past the span hold garbage that must
+    not leak in."""
+    rng = np.random.default_rng(hd + span + window)
+    s = 512
+    k, ks = _cache(rng, b, kvh, s, hd)
+    v, vs = _cache(rng, b, kvh, s, hd)
+    k = k.at[:, :, span:].set(127)
+    ks = ks.at[:, :, span:].set(1e3)
+    q = jnp.asarray(rng.standard_normal((b, h, 1, hd)), jnp.float32)
+    pos = jnp.asarray(rng.integers(0, span, b), jnp.int32).at[0].set(
+        span - 1)
+    want = _reference_swa(q, k[:, :, :span], ks[:, :, :span],
+                          v[:, :, :span], vs[:, :, :span], pos, 1,
+                          window=window, softcap=softcap)
+    for precision, tol in (("fast", 1e-2), ("high", 1e-5)):
+        got = np.asarray(decode_attention(
+            q, k, ks, v, vs, pos, t=1, precision=precision, span=span,
+            window=window, softcap=softcap))
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err < tol, (precision, err)
+
+
+def test_kv_cache_insert_drops_rows_outside_the_cache():
+    """Negative positions (rows owned by an earlier sequence shard) and
+    rows past the end are dropped; rows inside land exactly."""
+    rng = np.random.default_rng(6)
+    b, kvh, s, hd, t = 3, 2, 32, 64, 4
+    k, ks = _cache(rng, b, kvh, s, hd)
+    new = jnp.asarray(rng.standard_normal((b, kvh, t, hd)), jnp.float32)
+    pos = jnp.asarray([-2, 10, 30], jnp.int32)
+    k2, ks2, _, _ = attn.kv_cache_insert(new, new, k, ks, k, ks, pos, t=t)
+    q, _ = attn.quantize_kv(new)
+    k2, k0, q = np.asarray(k2), np.asarray(k), np.asarray(q)
+    for i, p in enumerate([-2, 10, 30]):
+        for j in range(t):
+            r = p + j
+            if 0 <= r < s:
+                np.testing.assert_array_equal(k2[i, :, r], q[i, :, j])
+        keep = [r for r in range(s) if not p <= r < p + t]
+        np.testing.assert_array_equal(k2[i, :, keep], k0[i, :, keep])

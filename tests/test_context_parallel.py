@@ -2,14 +2,13 @@
 
 The cache's sequence dim is split contiguously over the `sp` mesh axis;
 each shard inserts only the rows it owns (out-of-shard positions no-op in
-the windowed Pallas insert) and attention joins per-shard flash partials
+the cache insert) and attention joins per-shard flash partials
 with a pmax + two psums (models/llama.py:_cp_attention). These tests pin
 the sharded forward to the single-device path across prefill chunks that
 straddle shard boundaries and multi-step decode.
 
 The reference has no distributed/long-context story (SURVEY.md §5 scoped
-ring-style parallelism as the north-star gap) — this is the TPU-native
-realization: resident sharded cache + LSE combine, no ring permutes.
+ring-style parallelism as the north-star gap) — this realization: resident sharded cache + LSE combine, no ring permutes.
 """
 
 import numpy as np

@@ -173,7 +173,7 @@ def test_permute_rope_is_rotate_half_bridge():
     (True, True, "qwen2"),
 ])
 def test_convert_matches_hf_reference(tmp_path, qkv_bias, tied, model_type):
-    """Converted GGUF served through the TPU stack reproduces the HF
+    """Converted GGUF served through the MMQ stack reproduces the HF
     rotate-half-rope reference forward (f16 conversion: only fp16 +
     serving bf16 noise)."""
     d, t = _make_hf_dir(tmp_path, qkv_bias=qkv_bias, tied=tied,

@@ -215,17 +215,12 @@ def test_stop_sequences(llm):
 
 
 @pytest.mark.slow
-def test_decode_crosses_span_buckets_on_fallback_paths(tmp_path, monkeypatch):
-    """Generation that crosses the 128 -> 256 span bucket exercises the
-    XLA fallback (span 128) and the tiled flash-decoding kernel (span 256)
-    when the single-tile budget is exceeded; the engine must run cleanly
-    through the transition."""
-    import gguf_tpu.models.llama as llama_mod
-
+def test_decode_crosses_span_buckets_on_fallback_paths(tmp_path):
+    """Generation that crosses the 128 -> 256 span bucket: the engine must
+    run cleanly through the transition."""
     path = str(tmp_path / "tiny.gguf")
     write_random_llama_gguf(path, CFG, fmt=GGMLType.Q4_K, seed=5)
     llm = LLM(path, max_batch=2, max_seq=512)
-    monkeypatch.setattr(llama_mod, "PALLAS_ATTN_MAX_ELEMS", 1)
 
     outs = llm.generate([[3, 4, 5], [6, 7]], max_new_tokens=140,
                         sampler=SamplerConfig(temperature=0.0),
@@ -238,9 +233,9 @@ def test_decode_crosses_span_buckets_on_fallback_paths(tmp_path, monkeypatch):
 def test_chunked_prefill_matches_single_shot(tmp_path):
     """A long prompt prefilled in chunks must produce the same greedy
     completion as one whole-prompt prefill (the cache + span carry the
-    prefix exactly). Exact equality holds on the f32 CPU path; on TPU
-    bf16 the two routes agree to ~1e-2 relative on logits (measured on
-    v5e: matching argmax at the first token, later near-ties may flip)."""
+    prefix exactly). Exact equality holds on the f32 CPU path; with bf16
+    operands the two routes differ by rounding, so later greedy near-ties
+    may flip."""
     path = str(tmp_path / "tiny.gguf")
     write_random_llama_gguf(path, CFG, fmt=GGMLType.Q4_K, seed=7)
     prompt = list(np.random.default_rng(2).integers(3, CFG.vocab_size, 37))

@@ -1,6 +1,9 @@
-"""Pallas MMQ kernels vs the byte-level CPU goldens — the reference's parity
-sweep (test/test_mmq_q8_0.py:17-43 etc.), as pytest, on the interpreter
-(CPU). The same kernels compile for TPU; tests_tpu covers the real chip.
+"""The MMQ ops (`MMQ[fmt]`, ops/mmq.py) vs the byte-level CPU goldens — the
+reference's parity sweep (test/test_mmq_q8_0.py:17-43 etc.), as pytest. On
+the CPU the dispatch takes the plain XLA form; the Triton kernel is driven
+here directly in interpret mode (test_mmq_multi_tile_grid) and across its
+shape classes in test_mmq_triton.py. `python chip_smoke.py` compares the
+compiled kernel on the card.
 
 The contract (reference test asymmetry, SURVEY.md §3.3): the golden consumes
 pre-quantized Q8_1 activations, the kernel consumes float activations and
@@ -129,9 +132,24 @@ def test_mmq_legacy_parity(rng, fmt, m, n, k):
                                  "q4_0", "q4_1", "q5_0", "q5_1",
                                  "iq4_nl", "iq4_xs"])
 def test_mmq_multi_tile_grid(rng, fmt):
-    """Shapes that force multiple M and K grid steps (accumulator reuse)."""
-    got, want = _run(rng, fmt, 200, 4, 1024, block_m=128, block_k=256)
+    """Shapes that force several M tiles and a multi-superblock K loop in
+    each of two K splits: the Triton kernel (interpret mode) for q4_k/q6_k,
+    the dispatch for the rest, both against the golden."""
+    from gguf_tpu.ops.mmq import Tiles, mmq_kernel
+    from gguf_tpu.ops.activation import fake_quantize_q8_1
+
+    got, want = _run(rng, fmt, 200, 4, 1024)
     assert allclose_rel(got, want, 0.01), max_rel_err(got, want)
+    if fmt in ("q4_k", "q6_k"):
+        quantize, golden, _, _, _ = CASES[fmt]
+        a = rng.standard_normal((200, 1024)).astype(np.float16)
+        b = rng.standard_normal((4, 1024)).astype(np.float16)
+        want = golden(quantize(a), quantize_q8_1(b), 200, 4, 1024)
+        w = to_soa(fmt, quantize(a), 200, 1024)
+        got = np.asarray(mmq_kernel(
+            w, fake_quantize_q8_1(b.astype(np.float32)),
+            tiles=Tiles(bn=16, bm=64, k_splits=2, per_split=2)))
+        assert allclose_rel(got, want, 0.01), max_rel_err(got, want)
 
 
 @pytest.mark.parametrize("fmt", ["q8_0", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k",
@@ -139,11 +157,8 @@ def test_mmq_multi_tile_grid(rng, fmt):
                                  "iq4_nl", "iq4_xs"])
 @pytest.mark.parametrize("n", [40, 96])
 def test_mmq_glue_arms_parity(rng, fmt, n):
-    """Pin BOTH activation-glue dispatch arms (ADVICE r4): n=40 pads to 64
-    and takes the in-kernel decode glue above the int8-path width; n=96
-    exceeds INK_GLUE_MAX_N=64 and takes the XLA-side prefill glue. The
-    main sweep stops at n=16, so without these a prefill-glue regression
-    would pass CI."""
+    """Widths past the decode kernel's (KERNEL_MAX_N = 32): n=40 and n=96
+    always take dequantize-then-dot. The main sweep stops at n=16."""
     got, want = _run(rng, fmt, 16, n, 512)
     assert allclose_rel(got, want, 0.01), max_rel_err(got, want)
 
@@ -165,8 +180,7 @@ def test_mmq_no_act_quant_matches_dequant_matmul(rng, fmt):
 
 @pytest.mark.parametrize("fmt", ["q8_0", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k"])
 def test_mmq_large_n_tiled(rng, fmt):
-    """Prefill-sized N (> the 256-row tile) exercises the N grid dimension
-    (regression: untiled N OOM'd VMEM at b*t >= ~512)."""
+    """Prefill-sized N (300 rows) through the dispatch."""
     got, want = _run(rng, fmt, 64, 300, 512)
     assert allclose_rel(got, want, 0.01), max_rel_err(got, want)
 
@@ -188,28 +202,3 @@ def test_compat_reference_signature(rng, fmt):
         qa, b, m, n, k, precision="high"))
     assert got.shape == (n, m)
     assert allclose_rel(got, want, 0.01)
-
-
-def test_mmq_q4_k_glu_fusion_matches_xla(rng):
-    """The in-kernel GLU path (glu="silu": raw (N, 2K) gate_up operand,
-    act(gate)*up computed per K-step inside the down kernel, r5) must
-    reproduce the XLA split/act/mul chain exactly — same f32 math, same
-    glue dots — at decode widths, and fall back to that chain above
-    INK_GLUE_MAX_N and under act_quant."""
-    import jax.numpy as jnp
-
-    from gguf_tpu.ops import mmq_q4_k
-
-    m, k = 128, 512
-    a = rng.standard_normal((m, k)).astype(np.float16)
-    w = to_soa("q4_k", quantize_q4_k(a), m, k)
-    for n, aq in ((1, False), (16, False), (96, False), (16, True)):
-        gu = rng.standard_normal((n, 2 * k)).astype(np.float32) * 2
-        g, u = gu[:, :k], gu[:, k:]
-        import jax
-        h = np.asarray(jax.nn.silu(jnp.asarray(g)) * jnp.asarray(u))
-        want = np.asarray(mmq_q4_k(w, jnp.asarray(h), act_quant=aq,
-                                   precision="fast"))
-        got = np.asarray(mmq_q4_k(w, jnp.asarray(gu), act_quant=aq,
-                                  precision="fast", glu="silu"))
-        assert allclose_rel(got, want, 1e-4), (n, aq, max_rel_err(got, want))

@@ -244,7 +244,7 @@ def test_moe_top2_forward_runs(tmp_path):
 def test_moe_engine_serving(model):
     """The continuous-batching engine serves an MoE checkpoint: single-chip
     and ep x tp sharded greedy decode must produce identical tokens.
-    precision='high' keeps the MXU passes f32 — at 'fast' the tp split of
+    precision='high' keeps the dots in f32 — at 'fast' the tp split of
     the K sum reorders bf16 accumulation enough to flip greedy near-ties
     on a random 128-vocab model, which is rounding noise, not a parity
     bug (the logits-level check is test_moe_ep_sharding_...)."""

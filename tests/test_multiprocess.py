@@ -156,8 +156,8 @@ def test_two_process_tp2_forward(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Failure-path coverage (VERDICT r3 #8): the 2-host BASELINE target leans on
-# this bootstrap and nothing else in the environment can exercise it.
+# Failure-path coverage: multi-host serving leans on this bootstrap and
+# nothing else in the environment can exercise it.
 # ---------------------------------------------------------------------------
 
 PEER_MISSING = textwrap.dedent("""
@@ -299,16 +299,16 @@ TWO_BY_FOUR = textwrap.dedent("""
     assert info["psum_ok"] is True, info
     print(f"PSUM8_OK rank={{pid}}", flush=True)
 
-    # dp spans the DCN (process) boundary, tp the 4 process-local devices —
-    # the exact axis split the 2-host BASELINE config uses
+    # dp spans the process (host) boundary, tp the 4 process-local devices —
+    # the axis split of a 2-host deployment
     mesh = make_mesh(tp=4, dp=2)
     x = jax.make_array_from_process_local_data(
         jax.NamedSharding(mesh, P(("dp",), ("tp",))),
         np.full((1, 4), pid + 1, np.float32), (2, 4))
 
     def f(x):
-        tp_sum = jax.lax.psum(x, "tp")       # ICI-local collective
-        dp_sum = jax.lax.psum(tp_sum, "dp")  # DCN-crossing collective
+        tp_sum = jax.lax.psum(x, "tp")       # within-process collective
+        dp_sum = jax.lax.psum(tp_sum, "dp")  # cross-process collective
         return dp_sum
 
     got = jax.jit(jax.shard_map(
@@ -320,8 +320,8 @@ TWO_BY_FOUR = textwrap.dedent("""
 
 
 def test_two_process_four_virtual_devices(tmp_path):
-    """DCN bootstrap composed with a 4-wide process-local mesh axis: the
-    dp(x-host) x tp(local) split of the 2-host BASELINE config."""
+    """Multi-process bootstrap composed with a 4-wide process-local mesh
+    axis: the dp(x-host) x tp(local) split of a 2-host deployment."""
     outs, _ = _run_ranks(tmp_path, TWO_BY_FOUR)
     for rank, out in enumerate(outs):
         assert f"PSUM8_OK rank={rank}" in out, out

@@ -111,3 +111,45 @@ def test_native_dequant_equals_numpy(fmt):
     a = deq(qb, x.shape, native=True)
     b = deq(qb, x.shape, native=False)
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fmt,block_bytes", [("q4_k", 144), ("q6_k", 210)])
+def test_soft_fp16_build_matches(tmp_path, rng, fmt, block_bytes):
+    """Compilers without _Float16 (gcc < 12) build the software fp16 pair
+    (-DGQ_SOFT_FP16 forces it here): bit-identical conversions on every
+    fp16 pattern and on rounding ties, and identical quantized bytes."""
+    from gguf_tpu.quant import native
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "csrc", "gguf_kquant.c")
+    so = str(tmp_path / "soft.so")
+    subprocess.run(["gcc", "-O2", "-fPIC", "-shared", "-DGQ_SOFT_FP16",
+                    "-o", so, src, "-lm"], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    lib.gq_fp16_to_fp32_buf.argtypes = [u16p, f32p, ctypes.c_int64]
+    lib.gq_fp32_to_fp16_buf.argtypes = [f32p, u16p, ctypes.c_int64]
+    q = getattr(lib, f"gq_quantize_{fmt}")
+    q.argtypes = [f32p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+
+    bits = np.arange(2**16, dtype=np.uint16)
+    bits = bits[np.isfinite(bits.view(np.float16))]
+    f32 = np.empty(bits.size, np.float32)
+    lib.gq_fp16_to_fp32_buf(bits.ctypes.data_as(u16p), f32.ctypes.data_as(f32p),
+                            bits.size)
+    np.testing.assert_array_equal(f32, bits.view(np.float16).astype(np.float32))
+    # fp16 values, midpoints between neighbours (ties) and random floats
+    x = np.concatenate([f32, (f32[:-1] + f32[1:]) / 2,
+                        rng.standard_normal(4096).astype(np.float32) * 1e3])
+    x = np.ascontiguousarray(x[np.isfinite(x)], np.float32)
+    back = np.empty(x.size, np.uint16)
+    lib.gq_fp32_to_fp16_buf(x.ctypes.data_as(f32p), back.ctypes.data_as(u16p),
+                            x.size)
+    np.testing.assert_array_equal(back, x.astype(np.float16).view(np.uint16))
+
+    w = _make_data(rng, "normal", 256 * 64)
+    out = np.zeros(w.size // 256 * block_bytes, np.uint8)
+    q(w.ctypes.data_as(f32p), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+      w.size)
+    np.testing.assert_array_equal(out, getattr(native, f"quantize_{fmt}")(w))

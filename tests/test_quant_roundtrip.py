@@ -257,19 +257,6 @@ def test_q5_k_code_pack_unpack_inverse(rng):
     np.testing.assert_array_equal(back, codes)
 
 
-def test_force_interpret_context(rng):
-    """force_interpret flips kernels to interpreter mode and restores."""
-    from gguf_tpu.ops import common
-    from gguf_tpu.utils.profiling import annotate, force_interpret
-
-    before = common.running_interpreted()
-    with force_interpret():
-        assert common.running_interpreted()
-        with annotate("test-region"):
-            pass
-    assert common.running_interpreted() == before
-
-
 @pytest.mark.parametrize("fmt,bpb,floor", [
     ("q4_0", 18, 18.0), ("q4_1", 20, 19.0),
     ("q5_0", 22, 24.0), ("q5_1", 24, 25.0),
@@ -361,29 +348,10 @@ def test_legacy_all_zero_block():
         np.testing.assert_array_equal(y, 0.0)
 
 
-def test_fake_quantize_pallas_bit_identical():
-    """The decode-width Pallas fake-quant kernel must emit EXACTLY the XLA
-    chain's values (same fp16 rounding points; r4 — the chain cost 10.9
-    us/call of op-issue latency, `contract decomposition` RESULTS line)."""
-    import jax.numpy as jnp
-
-    from gguf_tpu.ops.activation import (_fake_quantize_pallas,
-                                         quantize_q8_1_act)
-
-    rng = np.random.default_rng(7)
-    for n, k in ((1, 256), (16, 1024), (64, 4096)):
-        x = jnp.asarray(rng.standard_normal((n, k)).astype(np.float32)) * 5
-        q, d, _ = quantize_q8_1_act(x)
-        ref = (q.reshape(n, k // 32, 32).astype(jnp.float32)
-               * d[..., None]).reshape(n, k)
-        got = _fake_quantize_pallas(x)
-        assert (np.asarray(got) == np.asarray(ref)).all(), (n, k)
-
-
 def test_quantize_codes_pallas_bit_identical():
-    """The codes-emitting Pallas kernel (the int8-MXU MMQ path's
-    activation side, r5) must produce EXACTLY the XLA chain's q/d/s —
-    same fp16 rounding points, same clip, same s-field."""
+    """quantize_q8_1_codes (the integer-dot operands: codes, d and the
+    fp16 s-field, reshaped to any leading shape) must produce EXACTLY the
+    q/d/s of quantize_q8_1_act — same fp16 rounding points, same clip."""
     import jax.numpy as jnp
 
     from gguf_tpu.ops.activation import (quantize_q8_1_act,
